@@ -4,7 +4,7 @@
 # package: one markdown page per public `spy.*` symbol (signature +
 # docstring) plus an index grouped by subsystem. Replaces the reference's
 # Sphinx-autodoc site (reference doc/source/) with a dependency-free
-# scripted dump (VERDICT r4 action #7).
+# scripted dump.
 #
 #   python scripts/gen_api_docs.py          # writes doc/api/*.md
 #   python scripts/gen_api_docs.py --check  # exit 1 if out of date
@@ -36,7 +36,7 @@ GROUPS = [
              "mne_raw_to_adata", "tldata_to_mne_epochs",
              "mne_epochs_to_tldata"]),
     ("Plotting", ["singlepanelplot", "multipanelplot"]),
-    ("Parallelism (TPU mesh)", ["make_mesh", "use_mesh", "active_mesh",
+    ("Parallelism (device mesh)", ["make_mesh", "use_mesh", "active_mesh",
                                 "cluster_cleanup", "esi_cluster_setup"]),
     ("Engine & shared", ["ComputationalRoutine", "get_defaults",
                          "best_match", "setup_logging", "set_loglevel",

@@ -1,7 +1,7 @@
 # -*- coding: utf-8 -*-
 #
 # Multi-host dryrun worker: one of N processes in a `jax.distributed`
-# CPU cluster (the TPU-native replacement for the reference's SLURM/ACME
+# CPU cluster (the device-native replacement for the reference's SLURM/ACME
 # worker processes, syncopy/shared/kwarg_decorators.py:415-584).
 #
 #   python scripts/multihost_worker.py <process_id> <num_processes> <port>

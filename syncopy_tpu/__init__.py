@@ -1,6 +1,6 @@
 # -*- coding: utf-8 -*-
 #
-# syncopy_tpu: TPU-native framework for large-scale electrophysiology data
+# syncopy_tpu: JAX framework for large-scale electrophysiology data
 # analysis with the capabilities of esi-neuroscience/syncopy.
 #
 # Namespace assembly mirrors reference syncopy/__init__.py:147-228: every
@@ -40,19 +40,19 @@ from .datatype.util import setup_storage, storage_dir, get_dir_size  # noqa: F40
 #: session-scoped temp-storage directory (reference `__storage__`)
 __storage__, __storage_size_gb__, __storage_nfiles__ = setup_storage()
 
-# persistent XLA compilation cache: TPU (re)compiles are expensive; cached
-# executables survive across processes (override dir via SPYJAXCACHE)
-try:
+# persistent XLA compilation cache. Where JAX_COMPILATION_CACHE_DIR is
+# set, JAX reads it itself and the package sets nothing; otherwise the
+# cache lives at one fixed path inside the checkout (a cache key includes
+# its directory, so the path must not move between processes).
+if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
     import jax as _jax
 
-    _cache_dir = os.environ.get(
-        "SPYJAXCACHE", os.path.join(os.path.expanduser("~"), ".spy", "jax_cache")
+    _jax.config.update(
+        "jax_compilation_cache_dir",
+        os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache"),
     )
-    os.makedirs(_cache_dir, exist_ok=True)
-    _jax.config.update("jax_compilation_cache_dir", _cache_dir)
     _jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-except Exception:  # pragma: no cover - cache is an optimization only
-    pass
+    del _jax
 
 setup_logging(session_id=__sessionid__)
 

@@ -71,22 +71,15 @@ class CrossSpectra(_CrossRoutine):
                  demean_taper=False, polyremoval=0, freq_idx=None, foi=None,
                  exact_fft=False):
         # exact_fft: factorization-grade CSD — compensated double-float32
-        # DFT + Gram (ops/connectivity.csd_sum_df32). Required for Granger
-        # on TPU: the hardware FFT's error structure leaves the averaged
-        # CSD without an exact Wilson factorization.
+        # DFT + Gram (ops/connectivity.csd_sum_df32). Required for Granger:
+        # a float32 FFT's error structure leaves the averaged CSD without
+        # an exact Wilson factorization.
         super().__init__(
             samplerate=samplerate, nSamples=nSamples, taper=taper, taper_opt=taper_opt,
             demean_taper=demean_taper, polyremoval=polyremoval,
             freq_idx=None if freq_idx is None else np.asarray(freq_idx, dtype=int),
             foi=foi, exact_fft=bool(exact_fft),
         )
-        # prime the pallas probe NOW (host-side): process_batch_sum runs
-        # under jit, where the probe cannot execute and would otherwise
-        # conservatively report False (see pallas_kernels.pallas_supported)
-        from ..ops.pallas_kernels import pallas_supported
-
-        pallas_supported()
-
     def process_single_trial(self, trial, **cfg):
         nfft = cfg["nSamples"] or trial.shape[0]
         return cross_spectra_trial(
@@ -112,19 +105,11 @@ class CrossSpectra(_CrossRoutine):
         return tapered, tapers.shape[0], nfft
 
     @staticmethod
-    def _batch_spectra(tapered, nfft, cfg, use_matmul_dft):
+    def _batch_spectra(tapered, nfft, cfg):
         """(B, K, F, C) one-sided spectra of a tapered batch."""
-        from ..ops.fft import tpu_rfft
+        from ..ops.fft import rfft_auto
 
-        if use_matmul_dft:
-            # MXU-resident DFT for non-pow2 lengths: the platform FFT is
-            # the slowest stage of this program there (~10x its traffic
-            # bound, profiled in benchmarks/diagnostics/
-            # coh_stage_profile.py) — the two-GEMM Cooley-Tukey transform
-            # replaces it at ~1.5e-7 relative error
-            spec = tpu_rfft(tapered, nfft, axis=2)  # (B, K, F, C)
-        else:
-            spec = jnp.fft.rfft(tapered, n=nfft, axis=2)
+        spec = rfft_auto(tapered, nfft, axis=2)  # (B, K, F, C)
         if cfg["freq_idx"] is not None:
             spec = jnp.take(spec, jnp.asarray(cfg["freq_idx"]), axis=2)
         return spec
@@ -132,7 +117,7 @@ class CrossSpectra(_CrossRoutine):
     def process_batch_sum(self, batch, n_valid, **cfg):
         """
         Fused trial-summed cross spectra: the whole (masked) trial x taper
-        stack collapses in ONE batched contraction on the MXU instead of
+        stack collapses in ONE batched contraction instead of
         materializing per-trial (nFreq, N, N) matrices — the engine's
         `keeptrials=False` fast path.
         """
@@ -140,8 +125,9 @@ class CrossSpectra(_CrossRoutine):
 
         if cfg.get("exact_fft") and batch.shape[1] <= 1024:
             # factorization-grade CSD: compensated double-f32 DFT + Gram —
-            # the hardware FFT's error structure otherwise floors Wilson's
-            # elementwise-relative error ~100x above the spectral noise
+            # a plain float32 FFT's error structure otherwise floors
+            # Wilson's elementwise-relative error ~100x above the spectral
+            # noise
             from ..ops.connectivity import csd_sum_df32
 
             mask = (jnp.arange(tapered.shape[0]) < n_valid)[:, None, None, None]
@@ -149,53 +135,27 @@ class CrossSpectra(_CrossRoutine):
             cs_sum = csd_sum_df32(tapered, nfft, freq_idx=cfg["freq_idx"]) / K
             return cs_sum[None].astype(jnp.complex64)
 
-        C = tapered.shape[-1]
-
         from ..ops.connectivity import csd_sum_compensated
-        from ..ops.pallas_kernels import (
-            csd_accumulate_tiled,
-            pallas_supported,
-            tiled_blocks_for,
-        )
 
-        blocks = tiled_blocks_for(C)
-        # exact_fft asked for a factorization-grade CSD; when the trial is
-        # too long for the df32 branch above, fall back to the compensated
-        # XLA sum — the pallas tile's in-group serial MXU error
-        # (<= row_block*eps, ~3e-5 worst at row_block=256) is the same
-        # order as the plain-f32 accumulation noise that makes CSDs
-        # un-factorizable (ops/connectivity.py docstrings)
-        use_pallas = (blocks is not None and not cfg.get("exact_fft")
-                      and pallas_supported())
-        spec = self._batch_spectra(tapered, nfft, cfg, use_pallas)
-        B, Kt, F, C = spec.shape
-
-        if use_pallas:
-            # production MXU path: ONE tiled pallas pass over the spectrum
-            # — per-frequency row-group contractions on the MXU, in-kernel
-            # n_valid masking, cross-group TwoSum into (hi, lo) f32 pairs.
-            # Replaces the XLA compensated einsum, which materializes
-            # (G, F, C, C) partials in HBM (~3 GB for a 1000-trial slab)
-            # and re-reads them through a G-step fori_loop. Accumulation
-            # error <= row_block*eps (in-group MXU serial) — ~1e-6 typical
-            # on the CSD, invisible at coherence level; this path never
-            # feeds Wilson (Granger uses exact_fft / csd_sum_compensated).
-            rb, fb = blocks
-            slab = spec.reshape(B * Kt, F, C)
-            cs_sum = csd_accumulate_tiled(
-                jnp.real(slab), jnp.imag(slab), n_valid * Kt,
-                row_block=rb, freq_block=fb,
-            ) / K
-        else:
-            # where-mask (not multiply): resident-input padding rows can be
-            # kernel(0) garbage incl. NaN, and NaN * 0 would poison the sum
-            mask = (jnp.arange(spec.shape[0]) < n_valid)[:, None, None, None]
-            spec = jnp.where(mask, spec, jnp.zeros((), spec.dtype))
-            # many-trial sums need compensated accumulation: plain serial
-            # f32 accumulation noise (~3e-5 at 1000 trials) makes the CSD
+        spec = self._batch_spectra(tapered, nfft, cfg)
+        # where-mask (not multiply): resident-input padding rows can be
+        # kernel(0) garbage incl. NaN, and NaN * 0 would poison the sum
+        mask = (jnp.arange(spec.shape[0]) < n_valid)[:, None, None, None]
+        spec = jnp.where(mask, spec, jnp.zeros((), spec.dtype))
+        if cfg.get("exact_fft"):
+            # Granger on trials too long for the df32 DFT: plain float32
+            # accumulation noise (~3e-5 at 1000 trials) makes the CSD
             # un-factorizable — see ops/connectivity.csd_sum_compensated
-            cs_sum = csd_sum_compensated(spec) / K
-        return cs_sum[None].astype(jnp.complex64)
+            cs_sum = csd_sum_compensated(spec)
+        else:
+            # coherence/CSD: one batched Gram at full float32 precision.
+            # On an NVIDIA H100 (700 W) at 1000 trials x 64 ch x 3 tapers
+            # it takes 2.4 ms with coherence error 3.7e-6 against float64,
+            # the compensated sum 12.0 ms with 1.9e-7
+            # (benchmarks/branch_ab.py)
+            cs_sum = jnp.einsum("bkfi,bkfj->fij", spec, jnp.conj(spec),
+                                precision=jax.lax.Precision.HIGHEST)
+        return (cs_sum / K)[None].astype(jnp.complex64)
 
 
 class PPCSpectra(CrossSpectra):
@@ -204,14 +164,16 @@ class PPCSpectra(CrossSpectra):
     single-trial cross spectra AND the unit-phasor resultant reduction
     (Vinck 2010 Eq. 14; reference connectivity_analysis.py:624-667)
     collapse into ONE engine pass — the per-trial CSD stack that the
-    two-pass path materializes (its HBM and readback bound) never exists.
-    ``process_batch_sum`` returns the resultant SUM of unit CSDs; the
-    frontend's fused post computes ``(|U|^2 - n) / (n (n - 1))``.
+    two-pass path materializes (its device-memory and readback bound)
+    never exists. ``process_batch_sum`` returns the resultant SUM of unit
+    CSDs; the frontend's fused post computes ``(|U|^2 - n) / (n (n - 1))``.
 
-    On TPU the reduction runs in the pallas kernel
-    :func:`~syncopy_tpu.ops.pallas_kernels.ppc_accumulate_tiled` (the
-    unit normalization happens in VMEM per trial); elsewhere an XLA
-    per-chunk stack fallback computes the identical sum.
+    On a GPU the reduction runs in the Triton kernel
+    :func:`~syncopy_tpu.ops.pallas_kernels.ppc_resultant_triton` (the unit
+    normalization happens in registers per trial); on the CPU plain XLA
+    computes the identical sum through the per-chunk stack. On a mesh
+    each device runs the kernel on its own trials and the partial sums
+    meet in one ``psum`` (``ppc_resultant_sharded``).
     """
 
     def process_single_trial(self, trial, **cfg):
@@ -224,48 +186,24 @@ class PPCSpectra(CrossSpectra):
 
     def device_bytes_per_trial(self, shp, out_shp, out_dt):
         """Per-trial footprint: tapered copy + spectrum, plus — on the XLA
-        fallback only — the per-chunk (F, C, C) unit-CSD stack the pallas
-        kernel avoids."""
-        from ..ops.pallas_kernels import pallas_supported, tiled_blocks_for
-
+        path only — the per-chunk (F, C, C) unit-CSD stack the GPU kernel
+        avoids."""
         T, C = shp[0], shp[1]
         nfft = self.cfg["nSamples"] or T
         fi = self.cfg["freq_idx"]
         F = (nfft // 2 + 1) if fi is None else len(fi)
         K = int(((self.cfg.get("taper_opt") or {}).get("Kmax", 1)) or 1)
         spec = K * T * C * 4 + K * F * C * 8
-        if tiled_blocks_for(C) is not None and pallas_supported():
-            return spec
+        if jax.default_backend() == "gpu":
+            return spec + K * F * C * 8  # real/imag split copy for the kernel
         return spec + F * C * C * 8
 
     def process_batch_sum(self, batch, n_valid, **cfg):
+        from ..ops.pallas_kernels import ppc_resultant
+
         tapered, K, nfft = self._tapered_batch(batch, cfg)
-        C = tapered.shape[-1]
-
-        from ..ops.pallas_kernels import (
-            pallas_supported,
-            ppc_accumulate_tiled,
-            tiled_blocks_for,
-        )
-
-        blocks = tiled_blocks_for(C)
-        use_pallas = blocks is not None and pallas_supported()
-        spec = self._batch_spectra(tapered, nfft, cfg, use_pallas)
-
-        if use_pallas:
-            _, fb = blocks
-            U = ppc_accumulate_tiled(
-                jnp.real(spec), jnp.imag(spec), n_valid, freq_block=fb
-            )
-        else:
-            cs = jnp.einsum(
-                "bkfi,bkfj->bfij", spec, jnp.conj(spec),
-                precision=jax.lax.Precision.HIGHEST,
-            )
-            mag = jnp.abs(cs)
-            unit = jnp.where(mag > 0, cs / jnp.where(mag > 0, mag, 1.0), 0.0)
-            mask = (jnp.arange(unit.shape[0]) < n_valid)[:, None, None, None]
-            U = jnp.sum(jnp.where(mask, unit, jnp.zeros((), unit.dtype)), axis=0)
+        spec = self._batch_spectra(tapered, nfft, cfg)
+        U = ppc_resultant(spec, n_valid, mesh=self._live_mesh)
         return U[None].astype(jnp.complex64)
 
 
@@ -349,18 +287,12 @@ class CrossCovariance(_CrossRoutine):
         """Per-trial footprint. Fused keeptrials=False path: one (L_fft, C)
         complex spectrum row per trial (the (L_fft, C, C) Gram is a fixed
         per-chunk cost, charged to the first trial's share conservatively
-        via the output term the engine already adds). keeptrials=True on
-        accelerators runs the lag-GEMM path (ops/connectivity.py::
-        _ccov_lags_gemm): a (lag_block, T, C) shifted workspace + the
-        (nLags, C, C) output. CPU keeps the FFT correlation with its
-        (fft_len, C, C) spectrum product."""
+        via the output term the engine already adds). keeptrials=True runs
+        the FFT correlation with its (fft_len, C, C) spectrum product."""
         T, C = shp[0], shp[1]
         L = 1 << int(2 * T - 1).bit_length()
         if not self.keeptrials:
             return T * C * 4 + (L // 2 + 1) * C * 8
-        if jax.default_backend() != "cpu":
-            n_lags = T // 2 + 1
-            return 64 * T * C * 4 + n_lags * C * C * 4
         return L * C * C * 16
 
     def process_single_trial(self, trial, **cfg):

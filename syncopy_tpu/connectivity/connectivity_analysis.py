@@ -6,7 +6,7 @@
 # Methods: coh, corr, granger, csd, ppc; channelcmb subsetting; jackknife
 # error estimation. Architecture follows the reference's two stages —
 # single-trial (ST) cross quantities, then averaged (AV) normalization —
-# with the trial loop batched on device. TPU redesigns: the PPC pair loop
+# with the trial loop batched on device. Device redesigns: the PPC pair loop
 # is an O(nTrials) resultant-vector reduction, and pairwise Granger
 # (`channelcmb`) runs one vmapped Wilson factorization over all pairs
 # instead of the reference's per-pair CR re-initialization.
@@ -98,7 +98,7 @@ def connectivityanalysis(
     parallel : bool or None
         Shard trials over the active device mesh (None = auto-detect).
         ``chan_per_worker`` (via kwargs) is accepted for reference
-        compatibility but ADVISORY ONLY: the TPU engine replaces channel
+        compatibility but ADVISORY ONLY: the engine replaces channel
         blocking with the mesh "channel" axis (results invariant, request
         logged). See `doc/engine.md`.
 

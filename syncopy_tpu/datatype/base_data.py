@@ -16,12 +16,11 @@ import socket
 from abc import ABC
 from datetime import datetime
 
-import h5py
 import numpy as np
 
 from ..shared.errors import SPYError, SPYTypeError, SPYValueError
 from ..shared.filetypes import FILE_EXT, extension_by_class
-from ..shared.tools import SerializableDict, StructDict
+from ..shared.tools import SerializableDict, StructDict, is_h5_dataset
 from .util import TrialIndexer, gen_session_filename
 
 __all__ = ["BaseData", "FauxTrial"]
@@ -162,7 +161,9 @@ class BaseData(ABC):
             raise SPYValueError(legal="'r', 'r+' or 'w'", varname="mode", actual=str(md))
         if md == self._mode:
             return
-        if isinstance(self._data, h5py.Dataset):
+        if is_h5_dataset(self._data):
+            import h5py
+
             fname = self._data.file.filename
             self._close_hdf()
             if md == "w":
@@ -205,10 +206,9 @@ class BaseData(ABC):
             else:
                 self._extra_datasets.pop(propertyName, None)
             return
-        supported = (np.ndarray, h5py.Dataset, str, list)
         if isinstance(inData, np.ndarray):
             self._set_dataset_property_with_ndarray(inData, propertyName, ndim)
-        elif isinstance(inData, h5py.Dataset):
+        elif is_h5_dataset(inData):
             self._set_dataset_property_with_dataset(inData, propertyName, ndim)
         elif isinstance(inData, str):
             self._set_dataset_property_with_str(inData, propertyName, ndim)
@@ -236,7 +236,7 @@ class BaseData(ABC):
             ndim = len(self._defaultDimord)
         self._check_dataset_property_complies(inData, propertyName, ndim)
         if propertyName == "data":
-            if isinstance(self._data, h5py.Dataset):
+            if is_h5_dataset(self._data):
                 # keep disk backing: overwrite in place if shapes match
                 if self._data.shape == inData.shape and self._data.dtype == inData.dtype and self.is_writable:
                     self._data[()] = inData
@@ -268,6 +268,8 @@ class BaseData(ABC):
         fpath = os.path.abspath(os.path.expanduser(inData))
         if not os.path.isfile(fpath):
             raise SPYValueError(legal="existing HDF5 file", varname=propertyName, actual=inData)
+        import h5py
+
         md = self._mode if self._mode in ("r", "r+") else "r+"
         try:
             f = h5py.File(fpath, md)
@@ -423,7 +425,7 @@ class BaseData(ABC):
         if not propertyName.isidentifier():
             raise SPYValueError(legal="valid identifier", varname="propertyName", actual=propertyName)
         if inData is not None:
-            self._extra_datasets[propertyName] = np.asarray(inData) if not isinstance(inData, h5py.Dataset) else inData
+            self._extra_datasets[propertyName] = np.asarray(inData) if not is_h5_dataset(inData) else inData
         elif self._extra_datasets.get(propertyName) is not None:
             # attaching None DETACHES an existing dataset (reference
             # test_attach_dataset.py:139); declaring a fresh slot stays a
@@ -447,15 +449,17 @@ class BaseData(ABC):
             except Exception:
                 pass
             self._hdfFile = None
-            self._data = None if isinstance(self._data, h5py.Dataset) else self._data
+            self._data = None if is_h5_dataset(self._data) else self._data
             self._extra_datasets = {
-                k: (None if isinstance(v, h5py.Dataset) else v) for k, v in self._extra_datasets.items()
+                k: (None if is_h5_dataset(v) else v) for k, v in self._extra_datasets.items()
             }
 
     def to_hdf(self, filename=None):
         """Move the (in-memory) payload onto disk, returning the filename."""
-        if isinstance(self._data, h5py.Dataset):
+        if is_h5_dataset(self._data):
             return self._data.file.filename
+        import h5py
+
         fname = filename or self.filename
         with h5py.File(fname, "w") as f:
             f.create_dataset("data", data=self._data)

@@ -5,7 +5,7 @@
 # Parity target: reference syncopy/datatype/util.py:16-189 (TrialIndexer,
 # TimeIndexer, setup_storage) and syncopy/__init__.py:112-135 (session
 # storage dir). Redesign notes: objects default to in-memory numpy storage
-# (TPU-native: host RAM is the staging area for HBM); disk backing via HDF5
+# (host RAM is the staging area for device memory); disk backing via HDF5
 # is opt-in/automatic for large data, so the tmp-storage dir is only used
 # for disk-backed objects.
 
@@ -27,7 +27,7 @@ def storage_dir():
     if os.environ.get("SPYTMPDIR"):
         return os.path.abspath(os.path.expanduser(os.environ["SPYTMPDIR"]))
     spydir = os.environ.get("SPYDIR", os.path.join(os.path.expanduser("~"), ".spy"))
-    return os.path.join(spydir, "tpu_tmp_storage")
+    return os.path.join(spydir, "tmp_storage")
 
 
 def setup_storage(storage_dir_path=None):

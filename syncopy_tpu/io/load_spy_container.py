@@ -7,7 +7,6 @@
 import json
 import os
 
-import h5py
 import numpy as np
 
 from ..shared.errors import SPYIOError, SPYValueError
@@ -111,6 +110,8 @@ def _load(fpath, checksum, mode):
     cls = getattr(datatype, clsname)
     obj = cls.__new__(cls)
     cls.__init__(obj)
+
+    import h5py
 
     f = h5py.File(fpath, mode)
     if info.get("dimord"):

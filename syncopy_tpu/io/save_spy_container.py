@@ -11,13 +11,12 @@
 import json
 import os
 
-import h5py
 import numpy as np
 
 from ..shared.errors import SPYError, SPYIOError, SPYTypeError, SPYValueError
 from ..shared.filetypes import FILE_EXT, extension_by_class
 from ..shared.kwarg_decorators import unwrap_cfg
-from ..shared.tools import _json_sanitize
+from ..shared.tools import _json_sanitize, is_h5_dataset
 from .utils import hash_file
 
 __all__ = ["save"]
@@ -87,6 +86,8 @@ def save(out, container=None, tag=None, filename=None, overwrite=False, memuse=1
     if os.path.exists(filename) and not overwrite and filename != out._filename:
         raise SPYIOError(filename, exists=True)
 
+    import h5py
+
     tmp_name = filename + ".tmp_save"
     with h5py.File(tmp_name, "w") as f:
         f.create_dataset("data", data=np.asarray(out.data))
@@ -120,7 +121,7 @@ def save(out, container=None, tag=None, filename=None, overwrite=False, memuse=1
                 f.attrs["freq"] = np.asarray(freq, dtype=float)
 
     # object may currently hold this very file open -> detach before replace
-    was_backed = isinstance(out.data, h5py.Dataset)
+    was_backed = is_h5_dataset(out.data)
     if was_backed:
         out._data = np.asarray(out.data)
         extra = {k: (np.asarray(v) if v is not None else None) for k, v in out._registered_datasets.items()}

@@ -1,3 +1,3 @@
 # -*- coding: utf-8 -*-
-# Stateless TPU-native (JAX/Pallas) numeric kernels — the analog of the
+# Stateless device (JAX/Pallas) numeric kernels — the analog of the
 # reference's NumPy/SciPy algorithm backends (SURVEY.md L4).

@@ -5,7 +5,7 @@
 #
 # Parity targets: reference syncopy/connectivity/csd.py:16-175,
 # wilson_sf.py:16-262, granger.py:10-80, ST_compRoutines.py:29-640,
-# AV_compRoutines.py:35-484. TPU redesign notes:
+# AV_compRoutines.py:35-484. Device redesign notes:
 #   - the per-channel-pair host loops (cross-covariance, csd) become
 #     batched outer products / FFT convolutions on device;
 #   - Wilson's iteration runs as a `lax.while_loop` over batched
@@ -115,14 +115,11 @@ def _ccov_lags_fft(x, n_lags, delta):
 
 def _ccov_lags_gemm(x, n_lags, delta, block=64):
     """Same lags as :func:`_ccov_lags_fft`, evaluated directly as
-    lag-batched channel Grams on the MXU: ``R[l] = x^T @ shift(x, l)``.
-
-    Fewer flops than the padded transform would suggest is irrelevant —
-    the platform FFT over C^2 length-2L sequences runs on the VPU at ~1 %
-    of the chip (measured 3.3 s for the 1000x64x64 corr workload); the
-    direct form computes ONLY the ~T/2 lags the production output keeps
-    and runs at MXU rate (exact-f32 GEMMs). lax.map over lag blocks keeps
-    the shifted workspace at ``block * T * C`` floats."""
+    lag-batched channel Grams: ``R[l] = x^T @ shift(x, l)``, computing
+    only the ~T/2 lags the output keeps (exact-f32 GEMMs). lax.map over
+    lag blocks keeps the shifted workspace at ``block * T * C`` floats.
+    Not on any production path (see :func:`cross_covariance_trial`);
+    queued for deletion."""
     T, C = x.shape
     n_out = n_lags + delta
     n_blocks = -(-n_out // block)
@@ -167,8 +164,10 @@ def cross_covariance_trial(trial, polyremoval=0, norm=False):
     """
     Single-trial cross-covariance at non-negative lags (reference
     ST_compRoutines.py:465-610 runs a per-pair fftconvolve host loop):
-    lag-batched MXU Grams on accelerator backends, batched FFT
-    correlation on CPU (identical to float rounding, equality-tested).
+    batched FFT correlation on every platform. On an NVIDIA H100 (700 W)
+    it takes 0.013 s for 128 trials x 64 ch x 1000 samples, the
+    lag-batched Grams of :func:`_ccov_lags_gemm` (identical to float
+    rounding, equality-tested) 0.037 s (benchmarks/branch_ab.py).
 
     Returns ``(nLags, 1, N, N)`` float32 with
     ``CC[l, 0, i, j] = sum_m x_i[m] x_j[m-l] / (T - l)``.
@@ -176,10 +175,7 @@ def cross_covariance_trial(trial, polyremoval=0, norm=False):
     x = detrend(trial.astype(jnp.float32), polyremoval, axis=0)
     T = x.shape[0]
     n_lags, delta = _ccov_lag_geometry(T)
-    if jax.default_backend() != "cpu":
-        R = _ccov_lags_gemm(x, n_lags, delta)
-    else:
-        R = _ccov_lags_fft(x, n_lags, delta)
+    R = _ccov_lags_fft(x, n_lags, delta)
     CC = _ccov_assemble(R, T)
     if norm:
         stds = jnp.std(x, axis=0)
@@ -196,11 +192,11 @@ def ccov_batch_sum(batch, n_valid, polyremoval=0):
 
     Per-trial cross-covariance is linear in the per-trial cross spectrum,
     so the trial sum accumulates in the FREQUENCY domain as one
-    per-frequency trial Gram on the MXU — ``S[f, i, j] = sum_b X[b, f, i]
+    per-frequency trial Gram — ``S[f, i, j] = sum_b X[b, f, i]
     conj(X[b, f, j])`` — followed by a SINGLE inverse FFT for the whole
     batch. That is ~100x fewer FLOPs than summing per-trial lag-GEMMs
     (one (C, T, C) Gram per trial vs one (B, C, C) Gram per frequency),
-    and both heavy stages are MXU/radix-2 work.
+    and both heavy stages are GEMM/radix-2 FFT work.
 
     Returns ``(nLags, 1, C, C)`` float32, equal to
     ``sum_b cross_covariance_trial(batch[b])`` over the first ``n_valid``
@@ -222,13 +218,13 @@ def ccov_batch_sum(batch, n_valid, polyremoval=0):
 # ------------------------------------------------------------------------ #
 # Compensated (double-word float32) helpers for the device Wilson path.
 #
-# The TPU runtime here has no float64, but Wilson factorization needs the
+# The device path runs in float32, but Wilson factorization needs the
 # RESIDUAL ``R = CSD - psi @ psi^H`` resolved well below float32 rounding:
 # the iteration is Newton's method, so only the residual must be accurate —
 # every correction term may be computed in float32 (classical mixed-
 # precision iterative refinement). The residual GEMM uses Ozaki-style
 # 8-bit mantissa slicing: slice products are integer-valued and accumulate
-# EXACTLY in the MXU's float32 accumulators (2*8 mantissa bits + log2(K)
+# EXACTLY in float32 accumulators (2*8 mantissa bits + log2(K)
 # carry bits < 24 for K <= 256 channels), and the slice partials combine
 # via error-free TwoSum into a double-float32 value (~2^-45 relative).
 # ------------------------------------------------------------------------ #
@@ -258,10 +254,10 @@ def _dft_twiddles_df32(nfft, T):
 
 def rfft_df32(x, nfft):
     """
-    One-sided DFT of real float32 input to ~double-float32 accuracy,
-    entirely on the MXU.
+    One-sided DFT of real float32 input to ~double-float32 accuracy, as
+    compensated GEMMs.
 
-    Why not jnp.fft.rfft: the TPU FFT is accurate to ~2.4e-7 of the
+    Why not jnp.fft.rfft: a float32 FFT is accurate to ~2.4e-7 of the
     spectral maximum, but its error structure is NOT that of a valid
     signal's spectrum — a trial-averaged CSD built from such spectra has
     no exact Wilson factorization, and Granger's elementwise-relative
@@ -345,7 +341,7 @@ def csd_sum_compensated(spec, sub=16):
     Trial/taper-summed cross-spectral density ``sum_bk s_bki conj(s_bkj)``
     with compensated (double-float32) accumulation.
 
-    Why: the MXU accumulates a 1000-term contraction SERIALLY in float32 —
+    Why: a float32 GEMM accumulating a 1000-term contraction serially —
     the resulting CSD deviates from the float64 sum by ~3e-5 relative,
     which is enough that NO exact Wilson spectral factorization of it
     exists (the interpolated density dips negative between frequency grid
@@ -399,7 +395,7 @@ def _split3(x, q=8):
     accumulate exactly in float32)."""
     m = jnp.max(jnp.abs(x), axis=-1, keepdims=True)
     # floor must be comfortably NORMAL in f32: XLA flushes subnormals to
-    # zero (CPU and TPU), and exp2(ceil(log2(0))) would poison sigma
+    # zero, and exp2(ceil(log2(0))) would poison sigma
     sigma = jnp.exp2(jnp.ceil(jnp.log2(jnp.maximum(m, jnp.float32(1e-30)))))
     t = x / sigma
     p = jnp.float32(2.0**q)
@@ -516,10 +512,8 @@ def _ns_inverse_rounds(psi, X, bar, Ident, mask_res, n_rounds):
     comparison and freezes the state, so the caller's final acceptance
     test (NaN <= bar is False) deterministically takes the LU branch.
     The static op count keeps the enclosing ``lax.while_loop`` body
-    shape-stable; a converged round wastes two (F, N, N) GEMMs
-    (~0.25 ms at (501, 64, 64)) — ~70x cheaper than the serialized
-    batched LU each extra round avoids (granger_stage_profile.py:
-    lu_inv 16.9 ms vs 0.25 ms/NS round).
+    shape-stable; a converged round wastes two (F, N, N) GEMMs, far
+    cheaper than the batched LU each extra round avoids.
     """
     P = psi @ X
     res = mask_res(Ident - P)
@@ -555,7 +549,7 @@ def _wilson_refine(CSD, psi, psi0, X_seed, lu_floor_seed, valid_bin, M, rtol,
     CSD entries to relative tolerance. Correction terms themselves only
     need float32: their errors are second-order in the residual.
 
-    One-sided design (round 5): every quantity is conjugate-symmetric
+    One-sided design: every quantity is conjugate-symmetric
     over frequency, so working on the F = M/2 + 1 non-negative bins
     halves the residual GEMMs, the plus transforms, and the df32 updates.
     The two-sided version needed an explicit (TwoSum-exact) conjugate
@@ -564,9 +558,8 @@ def _wilson_refine(CSD, psi, psi0, X_seed, lu_floor_seed, valid_bin, M, rtol,
     coupling is STRUCTURAL and the only residual degree of freedom is the
     imaginary part of the DC/Nyquist bins, projected to zero (a real-lag
     factor is real there; the projection is exact). The inverse is seeded
-    from phase 1's Newton-Schulz state instead of a fresh batched LU —
-    the LU serializes on TPU and was the single most expensive op of the
-    old refine stage (17 ms at (501, 64, 64), x2 two-sided).
+    from phase 1's Newton-Schulz state instead of a fresh batched LU,
+    which was the most expensive op of the old two-sided refine stage.
     """
     Sr = jnp.real(CSD)
     Si = jnp.imag(CSD)
@@ -713,28 +706,18 @@ def _plus_operator_onesided(g, M):
     half the FFT and downstream matrix work per iteration.
 
     The operator is a fixed R-linear map over (Re g, Im g), so it also
-    collapses to four (F, F) x (F, N^2) MXU GEMMs
-    (:func:`_plus_operator_onesided_gemm`). On TPU the GEMM form is >4x
-    faster at F=501 (granger_stage_profile.py: 2.2 ms FFT vs <0.5 ms GEMM
-    per application — the irfft/rfft pair runs on the VPU at a non-pow2
-    length) and is the DEFAULT for F <= 1201, where the (F, F) operator
-    matrices stay small (<= ~23 MB embedded constants) and the O(F^2 N^2)
-    GEMM flops still beat the platform FFT rate. ``SPY_TPU_WILSON_PLUS``
-    overrides: ``gemm`` forces the matmul form at any F, ``fft`` forces
-    the transforms.
+    collapses to four (F, F) x (F, N^2) GEMMs
+    (:func:`_plus_operator_onesided_gemm`), which ``SPY_TPU_WILSON_PLUS=
+    gemm`` selects. The transforms are the default: on an NVIDIA H100
+    (700 W) Granger at 128 channels x 501 bins runs 0.404 s with them vs
+    0.486 s with the GEMM form, end to end (benchmarks/branch_ab.py).
 
     Parameters
     ----------
     g : (F, N, N) complex — non-negative-frequency half
     M : int — full two-sided length (2F - 2)
     """
-    mode = os.environ.get("SPY_TPU_WILSON_PLUS", "auto").lower()
-    if mode == "gemm" or (
-        mode != "fft"
-        and g.dtype == jnp.complex64
-        and g.shape[0] <= 1201
-        and jax.default_backend() != "cpu"
-    ):
+    if os.environ.get("SPY_TPU_WILSON_PLUS", "auto").lower() == "gemm":
         return _plus_operator_onesided_gemm(g, M)
     rdtype = jnp.float64 if g.dtype == jnp.complex128 else jnp.float32
     beta = jnp.fft.irfft(g, n=M, axis=0).astype(rdtype)
@@ -773,10 +756,9 @@ def _plus_gemm_consts(F, M, f64=False):
 
 
 def _plus_operator_onesided_gemm(g, M):
-    """One-sided []+ as four (F, F) x (F, N^2) real GEMMs — MXU work in
-    place of the two platform FFTs, and (load-bearing on this platform)
-    an FFT-free Wilson loop body. Bit-for-bit it differs from the FFT
-    form only by accumulation order (~1e-6 relative at F=501/f32)."""
+    """One-sided []+ as four (F, F) x (F, N^2) real GEMMs in place of the
+    two platform FFTs. It differs from the FFT form only by accumulation
+    order (~1e-6 relative at F=501/f32)."""
     F = g.shape[0]
     f64 = g.dtype == jnp.complex128
     Br, Bi, Cr, Ci, r0 = _plus_gemm_consts(int(F), int(M), f64)
@@ -819,14 +801,13 @@ def wilson_sf_sharded(CSD, mesh=None, axis_name=None, nIter=100, rtol=1e-6):
     exceeds one chip's HBM.
 
     At 1024 channels a single (F, N, N) complex64 buffer is ~4.2 GB for a
-    1-second/1-kHz CSD and the iteration keeps >=4 such buffers live —
-    beyond a 16 GB v5e, so config-#5-scale Granger is inherently a
-    multi-chip workload (the reference's wilson_sf.py:16-128 runs on one
-    dask worker and hits the same wall in host RAM). Sharding: the
+    1-second/1-kHz CSD and the iteration keeps >=4 such buffers live
+    (the reference's wilson_sf.py:16-128 runs on one dask worker and
+    hits the same wall in host RAM). Sharding: the
     per-frequency cholesky/inv/GEMM batch is split over the mesh along
     frequency; the plus operator's lag-domain FFTs run split along the
     channel-row axis; `with_sharding_constraint` alternates the two
-    layouts and GSPMD inserts the all-to-all transposes over ICI. Per-
+    layouts and GSPMD inserts the all-to-all transposes. Per-
     device memory falls by ~the mesh size; results match :func:`wilson_sf`
     up to float accumulation order.
 
@@ -852,7 +833,7 @@ def wilson_sf_sharded(CSD, mesh=None, axis_name=None, nIter=100, rtol=1e-6):
     # cache the jitted program: a fresh jax.jit(lambda) per call would
     # re-trace and re-lower the full while-loop program every invocation
     # (expensive host-side at 1024 ch even with the persistent compile
-    # cache absorbing the remote compile)
+    # cache absorbing the compile)
     key = (CSD.shape, str(CSD.dtype), mesh, axis_name, int(nIter),
            float(rtol), wilson_env_fingerprint())
     prog = _SHARDED_WILSON_CACHE.get(key)
@@ -896,7 +877,7 @@ def granger_sharded(CSD, mesh=None, axis_name=None, rtol=5e-6, nIter=100, cond_m
 
 
 def _wilson_sf_impl(CSD, nIter, rtol, shard=_IdentityShard()):
-    # TPU matmuls default to bf16 accumulation, which makes the iteration
+    # reduced-precision matmuls (TF32 on a GPU) make the iteration
     # diverge — wilson_sf wraps this in default_matmul_precision("highest")
     cdtype = CSD.dtype
     rdtype = jnp.float64 if cdtype == jnp.complex128 else jnp.float32
@@ -1075,12 +1056,12 @@ _FAST_REG_MIN_CHAN = 96
 
 def _fast_reg_enabled(n_chan):
     """Use the extents-only regularization (`csd_lam_extents`) instead of
-    the full eigendecomposition? Shape-static, so jit-safe. eigvalsh wins
-    at narrow widths (~30 ms at 64 ch) but scales catastrophically on the
-    TPU QR eigensolver (1.75 s at 128 ch = 73 % of the whole factorization,
-    granger_stage_profile.py round 5), while the Cholesky-bisection cost
-    grows only with the batched-Cholesky rate. SPY_TPU_FAST_REG: "0" never,
-    "1" always, default auto (>= 96 channels)."""
+    the full eigendecomposition? Shape-static, so jit-safe. The batched
+    eigvalsh grows steeply with the channel count, while the
+    Cholesky-bisection cost grows only with the batched-Cholesky rate;
+    the 96-channel cut-over is not yet measured on the GPU.
+    SPY_TPU_FAST_REG: "0" never, "1" always, default auto (>= 96
+    channels)."""
     mode = os.environ.get("SPY_TPU_FAST_REG", "auto").lower()
     if mode == "0":
         return False
@@ -1094,8 +1075,8 @@ def csd_lam_extents(CSDh, bisect_rounds=30):
     Per-frequency EXTREME eigenvalues of a batch of Hermitian matrices
     without an eigendecomposition — the regularization selection
     (:func:`csd_reg_params`) only ever consumes lambda_min / lambda_max,
-    and the batched TPU eigvalsh that used to provide them is the single
-    most expensive op of the Granger pipeline at wide channel counts.
+    and a batched eigvalsh that provides them grows steeply with the
+    channel count.
 
     Vectorized Cholesky bisection, both ends at once: ``lam_min(A) > t``
     iff ``A - t*I`` admits a Cholesky factor (NaN-free on this backend),
@@ -1144,10 +1125,8 @@ def csd_lam_extents(CSDh, bisect_rounds=30):
 def csd_reg_params(CSD, cond_max=1e3, eps_max=1e-3, nSteps=15):
     """
     Regularization parameters for :func:`regularize_csd`, computed from a
-    batched Hermitian eigendecomposition of `CSD` — the single most
-    expensive op of the whole Granger pipeline on TPU (1.75 s of a 2.39 s
-    factorization at (501, 128, 128); granger_stage_profile.py round 5).
-    Split out so callers with MANY spectrally-adjacent matrices (jackknife
+    batched Hermitian eigendecomposition of `CSD` (or, from 96 channels,
+    Cholesky-bisection extents, :func:`csd_lam_extents`). Split out so callers with MANY spectrally-adjacent matrices (jackknife
     leave-one-out replicates differ by O(1/nTrials)) can compute the
     parameters ONCE from their mean and share them (see
     GrangerCausality.process_batch + :func:`psd_topup`).
@@ -1190,8 +1169,8 @@ def csd_reg_params(CSD, cond_max=1e3, eps_max=1e-3, nSteps=15):
         conds = (shifted_max / shifted_min).max(axis=1)  # (E+1,)
     else:
         lam = jnp.linalg.eigvalsh(CSDh).astype(rdtype)  # (F, N)
-        # PSD repair: the MXU accumulates the trial sum sequentially in
-        # f32, so a many-trial CSD can carry tiny NEGATIVE (or
+        # PSD repair: a trial sum accumulated sequentially in f32 can
+        # leave a many-trial CSD with tiny NEGATIVE (or
         # near-singular) smallest eigenvalues (measured ~3e-5 relative at
         # 1000 trials). An indefinite matrix has no Wilson factorization
         # and a near-singular one breaks the float32 iteration — lift each
@@ -1262,13 +1241,14 @@ def regularize_csd(CSD, cond_max=1e3, eps_max=1e-3, nSteps=15):
     return CSDreg, eps, ini_cond
 
 
-def wilson_sf_host(CSD, nIter=100, rtol=1e-6):
+def wilson_sf_host(CSD, nIter=100, rtol=1e-6, g_force=False):
     """
     Host-side float64 Wilson factorization — same algorithm as
-    :func:`wilson_sf`, in numpy. Used when the device cannot run float64
-    (JAX x64 disabled, e.g. TPU production configs): the factorization is
-    numerically infeasible in float32 for wide channel counts, while its
-    cost is negligible next to the trial-parallel CSD stage.
+    :func:`wilson_sf`, in numpy. Used when the float32 device
+    factorization cannot converge, and as the tests' float64 oracle.
+    `g_force` substitutes the exact fixed-point update ``g + I = 2I`` at
+    near-zero-power bins, as the float32 device path does (see
+    :func:`_wilson_sf_impl`); off by default (the reference iteration).
     """
     CSD = np.asarray(CSD, dtype=np.complex128)
     CSD = (CSD + np.conj(np.swapaxes(CSD, 1, 2))) / 2
@@ -1296,6 +1276,8 @@ def wilson_sf_host(CSD, nIter=100, rtol=1e-6):
     for _ in range(nIter):
         g = np.linalg.inv(psi) @ U  # inv+GEMM beats batched LU-solve (measured)
         g = g @ np.conj(np.swapaxes(g, 1, 2)) + Ident
+        if g_force:
+            g = np.where(valid_bin, g, 2 * Ident)
         beta = np.real(np.fft.ifft(g, axis=0)).astype(np.complex128)
         beta[0] *= 0.5
         g0 = beta[0].copy()

@@ -1,27 +1,24 @@
 # -*- coding: utf-8 -*-
 #
-# MXU-resident FFT: a two-stage Cooley-Tukey DFT evaluated as batched
-# matmuls.
+# Matmul DFT: a two-stage Cooley-Tukey DFT evaluated as batched matmuls,
+# and the FFT entry points that choose between it and the platform FFT.
 #
-# Why: XLA's TPU FFT runs on the VPU and is the single slowest stage of
-# the spectral pipelines here — profiled at 58 ms for the headline
-# coherence shape (192k rows of length 1000), ~10x above its HBM traffic
-# bound, more than the CSD Gram and normalization combined. Splitting
-# N = N1*N2 turns the transform into two skinny GEMMs (contraction N1,
-# then N2) plus an elementwise twiddle — N*(N1+N2) MACs instead of
-# N log N, but on the MXU at ~100x the effective rate of the TPU FFT, and
-# bandwidth-bound at these batch sizes anyway.
+# Splitting N = N1*N2 turns the transform into two skinny GEMMs
+# (contraction N1, then N2) plus an elementwise twiddle — N*(N1+N2) MACs
+# instead of N log N:
 #
 #   X[N1*s + r] = sum_q F2[s,q] * ( T[r,q] * sum_p F1[r,p] x[p*N2 + q] )
 #
 # with F1 = DFT(N1), F2 = DFT(N2), T[r,q] = exp(-2i pi r q / N).
 #
-# Accuracy: float32 GEMMs at HIGHEST precision — ~1e-6 relative (vs the
-# TPU FFT's ~2.4e-7). Used for coherence/welch-style power paths where
-# estimator noise is orders of magnitude larger; the factorization-grade
-# Granger CSD keeps the compensated double-float32 DFT
-# (ops/connectivity.rfft_df32), and parity-sensitive `fourier` outputs
-# keep the platform FFT.
+# On the NVIDIA H100 cuFFT is faster than this transform at the analysis
+# lengths measured (N=1000 mtmfft, coherence and PPC; see _prefer_matmul),
+# so the platform FFT is the default everywhere and the matmul DFT runs
+# only where SPY_TPU_MATMUL_FFT=1 asks for it.
+#
+# Accuracy: float32 GEMMs at HIGHEST precision — ~1e-6 relative. The
+# factorization-grade Granger CSD keeps the compensated double-float32
+# DFT (ops/connectivity.rfft_df32).
 
 import functools
 import os
@@ -31,65 +28,49 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-__all__ = ["rfft_via_matmul", "matmul_fft_split", "tpu_rfft"]
+__all__ = ["rfft_via_matmul", "matmul_fft_split", "rfft_auto"]
 
 # module-level constant (one process per setting, like the other SPY_TPU_*
-# engine knobs): SPY_TPU_MATMUL_FFT=0 reverts every gated call site to the
-# platform FFT
-_USE_MATMUL_FFT = os.environ.get("SPY_TPU_MATMUL_FFT", "1") != "0"
-# GEMM precision for the DFT stages: "highest" = exact f32 (6-pass bf16),
-# "high" = bf16_3x (~2^-21 per-op relative error, ~2x the matmul rate).
-# Power/TFR magnitude paths tolerate "high" easily (estimator noise is
-# orders of magnitude larger); default stays exact.
+# engine knobs): SPY_TPU_MATMUL_FFT=1 sends every gated call site to the
+# matmul DFT
+_USE_MATMUL_FFT = os.environ.get("SPY_TPU_MATMUL_FFT", "0") == "1"
+# GEMM precision for the DFT stages: "highest" = exact float32; "high"
+# trades accuracy for rate. Default stays exact.
 _MATMUL_PRECISION = os.environ.get("SPY_TPU_MATMUL_FFT_PRECISION", "highest")
 
 
 def _prefer_matmul(N):
-    """Measured rule (v5e, 2026-08-19): the matmul transform wins for
-    NON-power-of-two lengths, where the platform FFT pays mixed-radix
-    overheads far above its traffic bound (N=1000 rfft: 58 -> 32 ms on
-    the coherence path). For power-of-two lengths the platform radix-2
-    FFT wins (L=2048 wavelet ifft: matmul REGRESSED 1768 -> 1012
-    trials/s) — keep it there. Padded-convolution lengths are pow2 by
-    construction (preferred_fft_len), so in practice this fires for
-    analysis lengths fixed by the data (mtmfft/stft nfft)."""
-    return _USE_MATMUL_FFT and N & (N - 1) != 0 and jax.default_backend() != "cpu"
+    """Matmul DFT for a non-power-of-two length N? Only where
+    SPY_TPU_MATMUL_FFT=1 asks for it: on an NVIDIA H100 (700 W) cuFFT
+    wins end to end at N=1000 — mtmfft PSD 0.107 vs 0.128 s, coherence
+    0.035 vs 0.041 s, PPC 0.035 vs 0.050 s at 1000 trials x 64 channels,
+    and mtmconvol/welch tie (benchmarks/branch_ab.py) — and the CPU
+    never took it. Power-of-two lengths always use the platform FFT."""
+    return _USE_MATMUL_FFT and N & (N - 1) != 0
 
 
 def preferred_fft_len(n):
     """Smallest 'fast' transform length >= `n` for a padded convolution:
-    the next power of two.
-
-    Measured dead end (v5e, 2026-08-19, superlet bank 15 scales x 64
-    trials x 64 ch): {2,3}-smooth lengths through :func:`ifft_via_matmul`
-    DID beat a single common pow2 length (467 vs 359 trials/s at
-    L=3456 vs 4096) — but per-scale length BUCKETING (ops/wavelet.py::
-    _scale_buckets) beats both, and under bucketing the pow2 platform
-    ifft wins decisively: 590 trials/s vs 419 (matmul exact-f32) / 434
-    (matmul bf16_3x). Once every scale runs near its minimal length, the
-    radix-2 platform FFT's rate advantage at pow2 outweighs any further
-    {2,3}-smooth length saving. The matmul DFT remains the right tool for
-    NON-pow2 analysis lengths fixed by the data (tpu_rfft: N=1000 rfft
-    58 -> 32 ms)."""
+    the next power of two (per-scale length buckets, ops/wavelet.py::
+    _scale_buckets, keep every scale near its minimal length)."""
     n = int(n)
     return 1 << max((n - 1).bit_length(), 0)
 
 
-def tpu_rfft(x, nfft, axis=-2):
-    """``jnp.fft.rfft``, or :func:`rfft_via_matmul` on accelerator
-    backends for non-power-of-two lengths (see :func:`_prefer_matmul`).
-    Backend choice happens at trace time."""
+def rfft_auto(x, nfft, axis=-2):
+    """``jnp.fft.rfft``, or :func:`rfft_via_matmul` where
+    :func:`_prefer_matmul` selects it. The choice happens at trace time."""
     if _prefer_matmul(int(nfft)):
         return rfft_via_matmul(x, nfft, axis=axis)
     return jnp.fft.rfft(x, n=nfft, axis=axis)
 
 
-def tpu_ifft_crop(X, axis, n_out):
+def ifft_crop_auto(X, axis, n_out):
     """First `n_out` samples of ``jnp.fft.ifft(X, axis=axis)``: platform
-    ifft + slice, or :func:`ifft_via_matmul` on accelerators for
-    non-power-of-two lengths (which never computes the cropped-away
-    samples — wavelet banks keep only the first nSamples of an L-point
-    circular convolution)."""
+    ifft + slice, or :func:`ifft_via_matmul` where :func:`_prefer_matmul`
+    selects it (which never computes the cropped-away samples — wavelet
+    banks keep only the first nSamples of an L-point circular
+    convolution)."""
     if _prefer_matmul(int(X.shape[axis])):
         return ifft_via_matmul(X, axis=axis, n_out=n_out)
     idx = [slice(None)] * X.ndim
@@ -119,8 +100,8 @@ def _ct_plan_inv(N, n_out):
 def ifft_via_matmul(X, axis, n_out=None):
     """
     The first `n_out` samples of the length-N inverse DFT of complex `X`
-    along `axis`, as two batched MXU GEMM stages (complex einsums — XLA
-    decomposes them into real MXU matmuls). Restricting the output range
+    along `axis`, as two batched GEMM stages (complex einsums — XLA
+    decomposes them into real matmuls). Restricting the output range
     drops the p-blocks past ``n_out`` entirely — wavelet convolutions pad
     to L >> nSamples and discard the tail, so roughly half of stage 2
     never runs. Falls back to platform ifft for unfactorable lengths.
@@ -192,7 +173,7 @@ def _ct_plan(N):
 
 def rfft_via_matmul(x, nfft, axis=-2):
     """
-    One-sided DFT of real input via two batched MXU GEMM stages.
+    One-sided DFT of real input via two batched GEMM stages.
 
     Parameters
     ----------

@@ -5,7 +5,7 @@
 #
 # Parity targets: reference syncopy/preproc/firws.py:13-230,
 # compRoutines.py:26-300 (sinc/but filtering), resampling.py:15-140.
-# TPU redesign:
+# Device redesign:
 #   - FIR application is a batched FFT convolution (one rfft/irfft pair for
 #     all channels) instead of scipy.convolve;
 #   - the sequential IIR biquad cascade becomes a `lax.associative_scan`
@@ -94,33 +94,26 @@ def minphaserceps(fkernel):
 
 
 # -- direct-GEMM path for short trials (same design as the wavelet
-# convolution banks, ops/wavelet.py): one dense (T, T) operator on the
-# MXU instead of platform FFTs on the VPU. The FIR matrix at T=1000 is
-# 4 MB — small enough to embed as an executable literal.
+# convolution banks, ops/wavelet.py): one dense (T, T) operator instead
+# of platform FFTs. The FIR matrix at T=1000 is 4 MB — small enough to
+# embed as an executable literal.
 
 import os as _os
 
 
 def _prefer_filter_gemm(T):
-    """Measured rule (v5e, 2026-08-19): the dense (T, T) GEMM beats the
-    FFT forms of `apply_fir`/`hilbert` for short trials — the preproc
-    pipeline row (FIR bp -> hilbert envelope -> PSD, T=1000 x 64 ch)
-    runs 9459 -> 31801 trials/s (3.4x, rel err 2.1e-7). Quadratic
-    growth vs L log L keeps long trials on the FFT path.
-    SPY_TPU_FILTER_GEMM=1/0 forces either path."""
-    mode = _os.environ.get("SPY_TPU_FILTER_GEMM", "auto")
-    if mode == "0":
-        return False
-    if mode == "1":
-        return True
-    return jax.default_backend() != "cpu" and T <= 2048
+    """Dense-GEMM forms of `apply_fir`/`hilbert`? Only where
+    SPY_TPU_FILTER_GEMM=1 asks for them: on an NVIDIA H100 (700 W) the
+    FFT forms are as fast end to end (FIRWS low-pass + Hilbert envelope,
+    1000 trials x 64 ch x 1000 samples: 0.213 s FFT vs 0.223 s GEMM,
+    benchmarks/branch_ab.py), and the GEMM work grows as T^2."""
+    return _os.environ.get("SPY_TPU_FILTER_GEMM", "auto") == "1"
 
 
 def filter_gemm_fingerprint():
     """Trace-time state for executable cache keys of CRs whose programs
     gate on the filter-GEMM knob."""
-    return (_os.environ.get("SPY_TPU_FILTER_GEMM", "auto"),
-            jax.default_backend())
+    return (_prefer_filter_gemm(0),)
 
 
 @functools.lru_cache(maxsize=32)
@@ -151,8 +144,8 @@ def _hilbert_matrix(T):
 
 def apply_fir(data, fkernel):
     """'same'-mode FIR convolution of (nSamples, nChannels) data with a 1d
-    kernel: one dense MXU GEMM for short trials, else one batched FFT
-    (reference firws.py:13-42)."""
+    kernel: one batched FFT, or one dense GEMM where
+    :func:`_prefer_filter_gemm` selects it (reference firws.py:13-42)."""
     T = data.shape[0]
     K = len(fkernel)
     if _prefer_filter_gemm(T):
@@ -201,13 +194,13 @@ def _biquad(b, a, x, x0):
     s_init = jnp.stack([y_ss, y_ss], axis=0)  # (2, C)
 
     bs = jnp.concatenate([jnp.expand_dims(u, 1), jnp.zeros_like(jnp.expand_dims(u, 1))], axis=1)  # (T, 2, C)
-    bs = bs.at[0].add(A @ s_init)
+    bs = bs.at[0].add(jnp.matmul(A, s_init, precision=jax.lax.Precision.HIGHEST))
 
     def combine(left, right):
         A1, b1v = left
         A2, b2v = right
-        # TPU matmuls default to bf16 — the recurrence is numerically
-        # sensitive, pin full precision
+        # the recurrence is numerically sensitive: pin full float32
+        # (a default-precision f32 matmul may run in TF32 on a GPU)
         prec = jax.lax.Precision.HIGHEST
         return (
             jnp.matmul(A2, A1, precision=prec),
@@ -264,9 +257,10 @@ def sosfiltfilt(sos, x):
 
 
 def hilbert(x):
-    """Analytic signal along axis 0 (scipy.signal.hilbert semantics):
-    one (re, im) GEMM pair against the dense analytic operator for short
-    trials, else the fft -> one-sided mask -> ifft round trip."""
+    """Analytic signal along axis 0 (scipy.signal.hilbert semantics): the
+    fft -> one-sided mask -> ifft round trip, or one (re, im) GEMM pair
+    against the dense analytic operator where :func:`_prefer_filter_gemm`
+    selects it."""
     T = x.shape[0]
     if _prefer_filter_gemm(T):
         Hr, Hi = _hilbert_matrix(int(T))
@@ -314,7 +308,7 @@ def apply_fir_time_sharded(x, fkernel, mesh, axis_name="trial"):
     FIR filtering of a signal whose TIME axis is sharded across the mesh —
     the context-parallelism analog for recordings too long for one device
     (SURVEY.md §5 "long-context"): each shard exchanges a filter-halo of
-    ``(K-1)//2`` samples with its ring neighbors over ICI (`lax.ppermute`),
+    ``(K-1)//2`` samples with its ring neighbors (`lax.ppermute`),
     convolves locally, and crops — no full-signal gather anywhere.
 
     Parameters

@@ -1,353 +1,155 @@
 # -*- coding: utf-8 -*-
 #
-# Pallas TPU kernels for the hot compute paths.
+# Fused pairwise-phase-consistency (PPC) resultant as a Pallas kernel for
+# NVIDIA GPUs, compiled through Triton.
 #
-# `csd_accumulate`: the cross-spectral density accumulation — for every
-# frequency, the (nTrials*nTaper, nChannel) spectral slab collapses into a
-# (nChannel, nChannel) Hermitian outer-product sum. This is the inner loop
-# of coherence/Granger (reference syncopy/connectivity/csd.py:98-104 runs
-# it as a numpy broadcast product). On the MXU the complex contraction is
-# four real (C x N) @ (N x C) matmuls per frequency, with the frequency
-# axis as the pallas grid so each step's operand tile lives in VMEM.
+# The fused PPC pass (connectivity/ST_compRoutines.PPCSpectra) needs, per
+# frequency, the resultant of per-trial unit cross-spectra
+#
+#   U[f, i, j] = sum_{n < n_valid} csd_n[f, i, j] / |csd_n[f, i, j]|,
+#   csd_n[f, i, j] = sum_k spec[n, k, f, i] conj(spec[n, k, f, j])
+#
+# (the 1/K taper mean cancels in the unit normalization). XLA computes it
+# by writing the per-trial (B, F, C, C) complex stack to device memory and
+# reading it back to normalize and sum: ~2 GB per 125-trial chunk at
+# 64 channels x 501 bins. The taper contraction is K = 2-3 deep, far too
+# skinny for tensor cores, so that stage is bound by memory traffic alone.
+# The kernel keeps the per-trial Gram in registers: each program owns one
+# (frequency, channel-tile, channel-tile) output block and loops over the
+# trials inside the block, so the stack never exists and no atomics are
+# needed.
 
 import functools
 
-import numpy as np
-
 import jax
 import jax.numpy as jnp
+from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-__all__ = ["csd_accumulate", "csd_accumulate_tiled", "ppc_accumulate_tiled",
-           "pallas_supported"]
-
-
-def _csd_kernel(ar_ref, ai_ref, or_ref, oi_ref):
-    ar = ar_ref[0]  # (N, C) real parts for this frequency
-    ai = ai_ref[0]  # (N, C) imag parts
-    # cs_ij = sum_n a_ni * conj(a_nj):
-    #   Re = Ar^T Ar + Ai^T Ai ; Im = Ai^T Ar - Ar^T Ai
-    # full float32 multiply precision: the CSD feeds Wilson's factorization
-    # downstream, which needs a numerically Hermitian-PSD input
-    prec = jax.lax.Precision.HIGHEST
-    rr = jnp.dot(ar.T, ar, preferred_element_type=jnp.float32, precision=prec)
-    ii = jnp.dot(ai.T, ai, preferred_element_type=jnp.float32, precision=prec)
-    ri = jnp.dot(ai.T, ar, preferred_element_type=jnp.float32, precision=prec)
-    ir = jnp.dot(ar.T, ai, preferred_element_type=jnp.float32, precision=prec)
-    or_ref[0] = rr + ii
-    oi_ref[0] = ri - ir
+__all__ = ["ppc_resultant", "ppc_resultant_triton", "ppc_resultant_sharded",
+           "ppc_resultant_xla", "ppc_block_for"]
 
 
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def csd_accumulate(spec_re, spec_im, interpret=False):
+def ppc_block_for(n_chan):
+    """Channel tile edge: a power of two (Triton's block rule), at most 32
+    so the four (block, block) float32 accumulators of a program stay in
+    registers at 4 warps."""
+    return int(min(32, max(16, pl.next_power_of_2(int(n_chan)))))
+
+
+def _ppc_kernel(nv_ref, re_ref, im_ref, ur_ref, ui_ref, *, n_taper, n_chan,
+                block):
+    f = pl.program_id(0)
+    i0 = pl.program_id(1) * block
+    j0 = pl.program_id(2) * block
+    mi = i0 + jnp.arange(block) < n_chan
+    mj = j0 + jnp.arange(block) < n_chan
+    zero = jnp.zeros((block, block), jnp.float32)
+
+    def trial(n, acc):
+        ur, ui = acc
+        cre, cim = zero, zero
+        for k in range(n_taper):
+            ar_i = plgpu.load(re_ref.at[n, k, f, pl.ds(i0, block)], mask=mi, other=0.0)
+            ai_i = plgpu.load(im_ref.at[n, k, f, pl.ds(i0, block)], mask=mi, other=0.0)
+            ar_j = plgpu.load(re_ref.at[n, k, f, pl.ds(j0, block)], mask=mj, other=0.0)
+            ai_j = plgpu.load(im_ref.at[n, k, f, pl.ds(j0, block)], mask=mj, other=0.0)
+            cre = cre + ar_i[:, None] * ar_j[None, :] + ai_i[:, None] * ai_j[None, :]
+            cim = cim + ai_i[:, None] * ar_j[None, :] - ar_i[:, None] * ai_j[None, :]
+        mag2 = cre * cre + cim * cim
+        # exact-zero Grams (zero bins, masked channel padding) add nothing
+        scale = jnp.where(mag2 > 0.0, lax.rsqrt(jnp.maximum(mag2, 1e-37)), 0.0)
+        return ur + cre * scale, ui + cim * scale
+
+    # the trial loop stops at n_valid: padding trials past it (which may
+    # hold NaN garbage) are never loaded
+    ur, ui = lax.fori_loop(0, nv_ref[0], trial, (zero, zero))
+    ur_ref[...] = ur
+    ui_ref[...] = ui
+
+
+@functools.partial(jax.jit, static_argnames=("block", "interpret"))
+def ppc_resultant_triton(spec_re, spec_im, n_valid, block=None, interpret=False):
     """
-    Accumulated cross-spectra from (F, N, C) real/imag spectral slabs:
-    ``cs[f, i, j] = sum_n spec[f, n, i] * conj(spec[f, n, j])``.
+    PPC resultant ``U`` (see module header) from per-trial tapered spectra
+    given as float32 real and imaginary parts of shape (N, K, F, C).
 
-    Returns (cs_re, cs_im), each (F, C, C) float32.
-    """
-    F, N, C = spec_re.shape
-    grid = (F,)
-    in_spec = pl.BlockSpec((1, N, C), lambda f: (f, 0, 0), memory_space=pltpu.VMEM)
-    out_spec = pl.BlockSpec((1, C, C), lambda f: (f, 0, 0), memory_space=pltpu.VMEM)
-    return pl.pallas_call(
-        _csd_kernel,
-        grid=grid,
-        in_specs=[in_spec, in_spec],
-        out_specs=[out_spec, out_spec],
-        out_shape=[
-            jax.ShapeDtypeStruct((F, C, C), jnp.float32),
-            jax.ShapeDtypeStruct((F, C, C), jnp.float32),
-        ],
-        cost_estimate=pl.CostEstimate(
-            flops=8 * F * N * C * C,
-            bytes_accessed=4 * (2 * F * N * C + 2 * F * C * C),
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(spec_re, spec_im)
-
-
-def _csd_tiled_kernel(nv_ref, ar_ref, ai_ref, hr_ref, lr_ref, hi_ref, li_ref,
-                      *, row_block, freq_block):
-    """One (freq-tile, row-group) step of the tiled CSD accumulation.
-
-    The output blocks persist in VMEM across the (innermost) row-group
-    grid axis: group partials — each an exact-enough MXU contraction over
-    `row_block` rows — combine via error-free TwoSum into (hi, lo)
-    double-float32 accumulators, so the cross-group accumulation carries
-    NO serial rounding at all. Total error is bounded by the in-group MXU
-    serial accumulation alone (<= row_block * eps worst case, ~sqrt(row_
-    block) * eps typical — at the default 256 rows that is ~1e-5 worst /
-    ~1e-6 typical relative, far below coherence estimator noise; the
-    factorization-grade Granger paths keep their fully compensated sums).
-    """
-    g = pl.program_id(1)
-    nv = nv_ref[0, 0]
-    row0 = g * row_block
-    rows = jax.lax.broadcasted_iota(jnp.int32, (row_block, 1, 1), 0) + row0
-    mask = rows < nv
-    # where-mask (not multiply): padding rows of resident inputs can be
-    # kernel(0) garbage incl. NaN, and NaN * 0 would poison the sum
-    ar = jnp.where(mask, ar_ref[...], 0.0)
-    ai = jnp.where(mask, ai_ref[...], 0.0)
-    dn = (((0,), (0,)), ((), ()))
-    prec = jax.lax.Precision.HIGHEST
-    first = g == 0
-
-    for f in range(freq_block):  # static unroll over the freq tile
-        xr = ar[:, f, :]
-        xi = ai[:, f, :]
-        # cs_ij = sum_n a_ni conj(a_nj):
-        #   Re = Ar^T Ar + Ai^T Ai ; Im = Ai^T Ar - Ar^T Ai
-        rr = jax.lax.dot_general(xr, xr, dn, precision=prec,
-                                 preferred_element_type=jnp.float32)
-        ii = jax.lax.dot_general(xi, xi, dn, precision=prec,
-                                 preferred_element_type=jnp.float32)
-        ri = jax.lax.dot_general(xi, xr, dn, precision=prec,
-                                 preferred_element_type=jnp.float32)
-        ir = jax.lax.dot_general(xr, xi, dn, precision=prec,
-                                 preferred_element_type=jnp.float32)
-        pre = rr + ii
-        pim = ri - ir
-
-        @pl.when(first)
-        def _(f=f, pre=pre, pim=pim):
-            hr_ref[f] = pre
-            lr_ref[f] = jnp.zeros_like(pre)
-            hi_ref[f] = pim
-            li_ref[f] = jnp.zeros_like(pim)
-
-        @pl.when(jnp.logical_not(first))
-        def _(f=f, pre=pre, pim=pim):
-            # TwoSum (Knuth): s + e == old + p exactly
-            old = hr_ref[f]
-            s = old + pre
-            bb = s - old
-            hr_ref[f] = s
-            lr_ref[f] = lr_ref[f] + ((old - (s - bb)) + (pre - bb))
-            old = hi_ref[f]
-            s = old + pim
-            bb = s - old
-            hi_ref[f] = s
-            li_ref[f] = li_ref[f] + ((old - (s - bb)) + (pim - bb))
-
-
-@functools.partial(
-    jax.jit, static_argnames=("row_block", "freq_block", "interpret")
-)
-def csd_accumulate_tiled(spec_re, spec_im, n_valid_rows, row_block=256,
-                         freq_block=8, interpret=False):
-    """
-    Accumulated cross-spectra from (N, F, C) real/imag spectral slabs:
-    ``cs[f, i, j] = sum_{n < n_valid_rows} spec[n, f, i] * conj(spec[n, f, j])``.
-
-    The production MXU path for many-row CSD trial sums (reference
-    syncopy/connectivity/csd.py:98-104 runs this as a numpy broadcast
-    product per trial): the grid tiles (frequency x row-groups), operand
-    tiles live in VMEM, each group collapses in one f32-precision MXU
-    contraction, and groups combine into (hi, lo) double-float32
-    accumulators via TwoSum — one pass over the spectrum, no (G, F, C, C)
-    partial materialization in HBM (the XLA `csd_sum_compensated` path
-    materializes ~3 GB of partials for a 1000-trial slab and re-reads
-    them through a 188-step fori_loop).
-
-    Unlike :func:`csd_accumulate`, the row masking (`n_valid_rows`, a
-    traced scalar) happens in-kernel — padding rows cost no separate
-    where-pass over the slab.
-
-    Returns (F, C, C) complex64.
-    """
-    N, F, C = spec_re.shape
-    Npad = -(-N // row_block) * row_block
-    Fpad = -(-F // freq_block) * freq_block
-    if Npad != N or Fpad != F:
-        pad = ((0, Npad - N), (0, Fpad - F), (0, 0))
-        spec_re = jnp.pad(spec_re, pad)
-        spec_im = jnp.pad(spec_im, pad)
-    nv = jnp.asarray(n_valid_rows, jnp.int32).reshape(1, 1)
-    grid = (Fpad // freq_block, Npad // row_block)
-    in_spec = pl.BlockSpec((row_block, freq_block, C), lambda f, g: (g, f, 0),
-                           memory_space=pltpu.VMEM)
-    out_spec = pl.BlockSpec((freq_block, C, C), lambda f, g: (f, 0, 0),
-                            memory_space=pltpu.VMEM)
-    out_sds = jax.ShapeDtypeStruct((Fpad, C, C), jnp.float32)
-    hr, lr, hi, li = pl.pallas_call(
-        functools.partial(_csd_tiled_kernel, row_block=row_block,
-                          freq_block=freq_block),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((1, 1), lambda f, g: (0, 0),
-                         memory_space=pltpu.SMEM),
-            in_spec, in_spec,
-        ],
-        out_specs=[out_spec, out_spec, out_spec, out_spec],
-        out_shape=[out_sds, out_sds, out_sds, out_sds],
-        cost_estimate=pl.CostEstimate(
-            flops=8 * Fpad * Npad * C * C,
-            bytes_accessed=4 * (2 * Npad * Fpad * C + 4 * Fpad * C * C),
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(nv, spec_re, spec_im)
-    return jax.lax.complex(hr + lr, hi + li)[:F]
-
-
-def _ppc_tiled_kernel(nv_ref, ar_ref, ai_ref, ur_ref, ui_ref,
-                      *, trial_block, freq_block, n_taper):
-    """One (freq-tile, trial-group) step of the fused PPC resultant
-    accumulation: per trial, the taper-averaged CSD collapses to its unit
-    phasor CSD/|CSD| and adds into the resultant U — the per-trial CSD
-    stack never exists in HBM (the XLA path materializes ~2 GB per
-    125-trial chunk just to renormalize and sum it)."""
-    g = pl.program_id(1)
-    nv = nv_ref[0, 0]
-    first = g == 0
-    rows = jax.lax.broadcasted_iota(jnp.int32, (trial_block, 1, 1), 0)
-    valid = (g * trial_block + rows) < nv  # (B, 1, 1), broadcasts over (B, K, C)
-
-    # fully vectorized on the VPU: the per-trial Gram has contraction K
-    # (2-3 tapers) — far too skinny for the MXU (an unrolled dot_general
-    # variant measured 2.8x SLOWER than the XLA stack path). Broadcast
-    # outer products over the whole (trial_block, K, freq_block) block in
-    # exact f32 instead; transients stay ~3 MB in VMEM.
-    for f in range(freq_block):  # static unroll keeps transients small
-        # where-mask the INPUTS (not the summands): padding rows of
-        # resident inputs can be kernel(0) garbage incl. NaN, and a
-        # NaN * 0 scale would poison the resultant (same hazard the
-        # sibling _csd_tiled_kernel masks against)
-        ar = jnp.where(valid, ar_ref[:, :, f, :], 0.0)  # (B, K, C)
-        ai = jnp.where(valid, ai_ref[:, :, f, :], 0.0)
-        # taper-summed per-trial Gram (the 1/K mean cancels in the unit
-        # normalization): cre/cim (B, C, C)
-        cre = jnp.sum(ar[:, :, :, None] * ar[:, :, None, :]
-                      + ai[:, :, :, None] * ai[:, :, None, :], axis=1)
-        cim = jnp.sum(ai[:, :, :, None] * ar[:, :, None, :]
-                      - ar[:, :, :, None] * ai[:, :, None, :], axis=1)
-        mag = jnp.sqrt(cre * cre + cim * cim)
-        # padded trials collapsed to exact zeros above; zero bins and
-        # padding alike contribute nothing through the mag > 0 gate
-        scale = jnp.where(mag > 0.0, 1.0 / jnp.maximum(mag, 1e-37), 0.0)
-        acc_r = jnp.sum(cre * scale, axis=0)
-        acc_i = jnp.sum(cim * scale, axis=0)
-
-        @pl.when(first)
-        def _(f=f, acc_r=acc_r, acc_i=acc_i):
-            ur_ref[f] = acc_r
-            ui_ref[f] = acc_i
-
-        @pl.when(jnp.logical_not(first))
-        def _(f=f, acc_r=acc_r, acc_i=acc_i):
-            ur_ref[f] = ur_ref[f] + acc_r
-            ui_ref[f] = ui_ref[f] + acc_i
-
-
-@functools.partial(
-    jax.jit, static_argnames=("trial_block", "freq_block", "interpret")
-)
-def ppc_accumulate_tiled(spec_re, spec_im, n_valid_trials, trial_block=8,
-                         freq_block=8, interpret=False):
-    """
-    PPC resultant from per-trial tapered spectra (N, K, F, C):
-    ``U[f, i, j] = sum_{n < n_valid} csd_n[f, i, j] / |csd_n[f, i, j]|``
-    with ``csd_n = mean_k spec[n, k, f, i] conj(spec[n, k, f, j])``.
-
-    Grid tiles (frequency x trial-groups); the unit-phasor reduction runs
-    entirely in VMEM, so the (N, F, C, C) per-trial CSD stack — the XLA
-    streamed path's HBM bound — never materializes. Plain f32 resultant
-    accumulation: each term has magnitude <= 1 and PPC subtracts n at the
-    end, so the absolute error ~N*eps*sqrt(N) stays orders below the
-    estimator's own 1/sqrt(N) noise for any N this fits in HBM anyway.
+    Plain float32 resultant accumulation: each term has magnitude <= 1
+    and PPC subtracts n at the end, so the absolute error
+    ~N*eps*sqrt(N) stays orders below the estimator's 1/sqrt(N) noise.
 
     Returns U as (F, C, C) complex64; PPC itself is
-    ``(|U|^2 - n) / (n * (n - 1))`` (reference
-    connectivity_analysis.py:624-667 runs the O(n^2) pair loop).
+    ``(|U|^2 - n) / (n * (n - 1))``.
     """
     N, K, F, C = spec_re.shape
-    Npad = -(-N // trial_block) * trial_block
-    Fpad = -(-F // freq_block) * freq_block
-    if Npad != N or Fpad != F:
-        pad = ((0, Npad - N), (0, 0), (0, Fpad - F), (0, 0))
-        spec_re = jnp.pad(spec_re, pad)
-        spec_im = jnp.pad(spec_im, pad)
-    nv = jnp.asarray(n_valid_trials, jnp.int32).reshape(1, 1)
-    grid = (Fpad // freq_block, Npad // trial_block)
-    in_spec = pl.BlockSpec((trial_block, K, freq_block, C),
-                           lambda f, g: (g, 0, f, 0),
-                           memory_space=pltpu.VMEM)
-    out_spec = pl.BlockSpec((freq_block, C, C), lambda f, g: (f, 0, 0),
-                            memory_space=pltpu.VMEM)
-    out_sds = jax.ShapeDtypeStruct((Fpad, C, C), jnp.float32)
+    block = block or ppc_block_for(C)
+    nb = -(-C // block)
+    nv = jnp.minimum(jnp.asarray(n_valid, jnp.int32), N).reshape(1)
+    out_spec = pl.BlockSpec((None, block, block), lambda f, i, j: (f, i, j))
+    out_sds = jax.ShapeDtypeStruct((F, nb * block, nb * block), jnp.float32)
     ur, ui = pl.pallas_call(
-        functools.partial(_ppc_tiled_kernel, trial_block=trial_block,
-                          freq_block=freq_block, n_taper=K),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((1, 1), lambda f, g: (0, 0),
-                         memory_space=pltpu.SMEM),
-            in_spec, in_spec,
-        ],
+        functools.partial(_ppc_kernel, n_taper=K, n_chan=C, block=block),
+        grid=(F, nb, nb),
         out_specs=[out_spec, out_spec],
         out_shape=[out_sds, out_sds],
-        cost_estimate=pl.CostEstimate(
-            flops=8 * Fpad * Npad * K * C * C + 10 * Fpad * Npad * C * C,
-            bytes_accessed=4 * (2 * Npad * K * Fpad * C + 2 * Fpad * C * C),
-            transcendentals=Fpad * Npad * C * C,
-        ),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=4, num_stages=1),
         interpret=interpret,
-    )(nv, spec_re, spec_im)
-    return jax.lax.complex(ur, ui)[:F]
+        name="ppc_resultant",
+    )(nv, spec_re.astype(jnp.float32), spec_im.astype(jnp.float32))
+    return jax.lax.complex(ur, ui)[:, :C, :C]
 
 
-def tiled_blocks_for(n_chan):
-    """(row_block, freq_block) keeping the VMEM working set (2 operand
-    tiles + 4 output tiles) under the ~16 MB core budget across channel
-    widths. Mosaic requires the operand block's second-to-last dim (the
-    freq tile) divisible by 8, so freq_block is pinned there and the row
-    block shrinks with width; None above 256 channels (the four (8, C, C)
-    output tiles alone would exceed VMEM — config-#5-scale coherence runs
-    its own streamed pipeline)."""
-    if n_chan <= 128:
-        return 256, 8
-    if n_chan <= 256:
-        return 64, 8
-    return None
+def ppc_resultant_xla(spec, n_valid):
+    """The same resultant in plain XLA: per-trial Gram stack, unit
+    normalization, masked trial sum. Runs on the CPU and is the Triton
+    kernel's reference."""
+    cs = jnp.einsum("bkfi,bkfj->bfij", spec, jnp.conj(spec),
+                    precision=jax.lax.Precision.HIGHEST)
+    mag = jnp.abs(cs)
+    unit = jnp.where(mag > 0, cs / jnp.where(mag > 0, mag, 1.0), 0.0)
+    # where-mask (not multiply): padding trials may hold NaN garbage
+    mask = (jnp.arange(unit.shape[0]) < n_valid)[:, None, None, None]
+    return jnp.sum(jnp.where(mask, unit, jnp.zeros((), unit.dtype)), axis=0)
 
 
-_PALLAS_OK = None
+def ppc_resultant_sharded(spec, n_valid, mesh, interpret=False):
+    """The Triton resultant on a trial-sharded batch: each device runs the
+    kernel on its own contiguous block of trials (its share of ``n_valid``)
+    and the partial resultants meet in one ``psum``. The partitioner cannot
+    split the kernel's custom call itself, so without this wrapper every
+    device would gather the whole batch and repeat the reduction."""
+    from jax import shard_map
+    from jax.sharding import PartitionSpec as P
+
+    from ..parallel.mesh import TRIAL_AXIS
+
+    def local(re, im, nv):
+        n_local = re.shape[0]
+        first = lax.axis_index(TRIAL_AXIS) * n_local
+        nv_local = jnp.clip(nv - first, 0, n_local)
+        U = ppc_resultant_triton(re, im, nv_local, interpret=interpret)
+        return lax.psum(U, TRIAL_AXIS)
+
+    # check_vma off: pallas_call's outputs carry no varying-axes type
+    fn = shard_map(local, mesh=mesh, in_specs=(P(TRIAL_AXIS), P(TRIAL_AXIS), P()),
+                   out_specs=P(), check_vma=False)
+    nv = jnp.asarray(n_valid, jnp.int32)
+    return fn(jnp.real(spec), jnp.imag(spec), nv)
 
 
-def _in_active_trace():
-    try:
-        return not jax.core.trace_state_clean()
-    except Exception:
-        return False
-
-
-def pallas_supported():
-    """Probe (once) whether pallas kernels compile on the default backend.
-
-    The production call site — ``CrossSpectra.process_batch_sum`` — runs
-    INSIDE a jit trace, where the probe cannot execute (the inner jit
-    inlines into the outer trace and returns a tracer; the swallowed
-    AttributeError used to cache False and silently pin the engine to the
-    non-pallas fallback forever). The probe therefore only runs when no
-    trace is active; under a trace with no cached verdict it returns
-    False for THAT call without caching. Pallas-capable routines prime
-    the probe at construction time (always host-side) so the traced call
-    sees the real verdict."""
-    global _PALLAS_OK
-    if _PALLAS_OK is None:
-        if _in_active_trace():
-            return False  # un-primed under trace: conservative, uncached
-        try:
-            if jax.default_backend() == "cpu":
-                _PALLAS_OK = False
-            else:
-                r = np.zeros((1, 8, 128), dtype=np.float32)
-                csd_accumulate(jnp.asarray(r), jnp.asarray(r))[0].block_until_ready()
-                _PALLAS_OK = True
-        except Exception:
-            _PALLAS_OK = False
-    return _PALLAS_OK
+def ppc_resultant(spec, n_valid, mesh=None):
+    """Resultant of a (B, K, F, C) complex spectrum batch on the default
+    backend: the Triton kernel on a GPU (one kernel per device when `mesh`
+    shards trials over several), plain XLA on the CPU. Any other platform
+    raises instead of silently taking a slow path."""
+    platform = jax.default_backend()
+    if platform == "gpu":
+        if mesh is not None and mesh.size > 1:
+            return ppc_resultant_sharded(spec, n_valid, mesh)
+        return ppc_resultant_triton(jnp.real(spec), jnp.imag(spec), n_valid)
+    if platform == "cpu":
+        return ppc_resultant_xla(spec, n_valid)
+    raise NotImplementedError(
+        "no PPC resultant kernel for platform '{}'".format(platform))

@@ -3,7 +3,7 @@
 # Jittable spectral kernels: (multi-)tapered FFT and detrending.
 #
 # Parity target: reference syncopy/specest/mtmfft.py:16-129 — redesigned for
-# TPU: the per-taper host loop becomes one broadcasted multiply (VPU) plus a
+# the device: the per-taper host loop becomes one broadcasted multiply plus a
 # single batched rfft (XLA), and the normalization scalars are folded into
 # the taper constants (see ops/windows.py). Batching over trials happens via
 # vmap in the engine; the taper axis rides along as a regular array axis so
@@ -64,9 +64,9 @@ def mtmfft(data, tapers, nfft, demean_taper=False, platform_fft=False):
         tapered = tapered - jnp.mean(tapered, axis=1, keepdims=True)
     if platform_fft:
         return jnp.fft.rfft(tapered, n=nfft, axis=1)
-    from .fft import tpu_rfft
+    from .fft import rfft_auto
 
-    return tpu_rfft(tapered, nfft, axis=1)
+    return rfft_auto(tapered, nfft, axis=1)
 
 
 def mtmfft_exact(data, tapers, nfft, demean_taper=False):
@@ -74,8 +74,8 @@ def mtmfft_exact(data, tapers, nfft, demean_taper=False):
     :func:`mtmfft` with the compensated double-float32 DFT
     (ops/connectivity.rfft_df32) instead of the hardware FFT: the returned
     complex64 spectrum carries ENTRY-proportional rounding only (~6e-8),
-    making downstream trial-averaged CSDs Wilson-factorizable on TPU
-    (the hardware FFT's error structure otherwise floors Granger's
+    making downstream trial-averaged CSDs Wilson-factorizable (a float32
+    FFT's error structure otherwise floors Granger's
     convergence; see ops/connectivity.rfft_df32). Use for
     ``freqanalysis(..., output='fourier', exact_fft=True)`` feeding
     Granger. Signal lengths up to 1024 samples.

@@ -13,7 +13,7 @@
 import jax
 import jax.numpy as jnp
 
-from .fft import tpu_rfft
+from .fft import rfft_auto
 from .spectral import detrend, spectral_convert
 
 __all__ = ["mtmconvol", "mtmconvol_time_sharded"]
@@ -59,7 +59,7 @@ def mtmconvol(
     frames = x[idx]  # (nTime, nperseg, C) gather
     frames = detrend(frames, polyremoval, axis=1)
     tapered = frames[:, None, :, :] * tapers[None, :, :, None]
-    ftr = tpu_rfft(tapered, tapered.shape[2], axis=2)
+    ftr = rfft_auto(tapered, tapered.shape[2], axis=2)
     if freq_idx is not None:
         ftr = jnp.take(ftr, jnp.asarray(freq_idx), axis=2)
     spec = spectral_convert(ftr, output)
@@ -85,7 +85,7 @@ def mtmconvol_time_sharded(
     recordings too long for one device's HBM (SURVEY.md §5 "long-context";
     reference mtmconvol.py:17 computes the same spectrogram on one host).
 
-    Each shard exchanges a window halo with its ring neighbors over ICI
+    Each shard exchanges a window halo with its ring neighbors
     (`lax.ppermute`), frames + rffts its own window centers locally, and the
     output spectrogram stays sharded along its time axis — no full-signal
     gather anywhere. Bit-equal to :func:`mtmconvol` with ``centers =
@@ -134,7 +134,7 @@ def mtmconvol_time_sharded(
         frames = ext[idx]  # (T_local, nperseg, C)
         frames = detrend(frames, polyremoval, axis=1)
         tapered = frames[:, None, :, :] * taper_bank[None, :, :, None]
-        ftr = tpu_rfft(tapered, tapered.shape[2], axis=2)
+        ftr = rfft_auto(tapered, tapered.shape[2], axis=2)
         if freq_idx is not None:
             ftr = jnp.take(ftr, jnp.asarray(freq_idx), axis=2)
         spec = spectral_convert(ftr, output)

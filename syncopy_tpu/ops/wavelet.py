@@ -1,6 +1,6 @@
 # -*- coding: utf-8 -*-
 #
-# Continuous wavelet transform + superlet transform, TPU-native.
+# Continuous wavelet transform + superlet transform on the device.
 #
 # Parity targets: reference syncopy/specest/wavelets/transform.py:88-108
 # (cwt_time), wavelets/wavelets.py:13-380 (Morlet/Paul/DOG/Ricker),
@@ -17,7 +17,7 @@
 # only one (nOrders, L, nChannels) block is ever live per trial — the
 # naive all-orders bank materializes (nOrders, nScales, L, nChannels)
 # complex intermediates, which caps the engine's trial batch at single
-# digits on a 16 GB chip.
+# digits.
 
 import functools
 import math
@@ -191,9 +191,8 @@ def get_optimal_wavelet_scales(scale_from_period, nSamples, dt, dj=0.25, s0=None
 
 
 def _next_fast_len(n):
-    """Padded-convolution FFT length: next power of two, or a smaller
-    {2,3}-smooth length when the MXU matmul transform will run it (see
-    ops.fft.preferred_fft_len — measured +30 % on the superlet bank)."""
+    """Padded-convolution FFT length: the next power of two (see
+    ops.fft.preferred_fft_len)."""
     from .fft import preferred_fft_len
 
     return preferred_fft_len(int(n))
@@ -316,14 +315,14 @@ def _superlet_bank_fft(scales_key, dt, nSamples, cycles_key, L_override=None):
 
 
 # --------------------------------------------------------------------- #
-# Direct time-domain GEMM convolution: the MXU path for short trials.
+# Direct time-domain GEMM convolution: the GEMM path for short trials.
 #
 # The FFT path runs ~(S+1) platform FFTs of the padded length L per
-# trial-channel on the VPU. For short trials the whole 'same' convolution
+# trial-channel. For short trials the whole 'same' convolution
 # is instead ONE constant matrix G[(s, t), m] = kern_s[t - m + c_s]
 # applied as two real (S*T, T) @ (T, C) GEMMs (re/im of the analytic
 # kernels; the data is real) — S*T*T MACs instead of (S+1)*L*log L, but
-# on the systolic array, with no padding to a power of two and no
+# as dense GEMMs, with no padding to a power of two and no
 # per-scale length buckets. Equal to the FFT path's cropped linear
 # convolution exactly (the FFT path's L >= T + K rules out wraparound).
 # --------------------------------------------------------------------- #
@@ -344,26 +343,34 @@ def _gemm_fingerprint():
     )
 
 
-def _prefer_conv_gemm(nSamples, n_rows):
-    """Measured rule (v5e, 2026-08-19): the dense GEMM convolution beats
-    the padded-FFT bank for trials up to a few thousand samples — the
-    bench TFR shapes run 1.75x (Morlet, T=1000, S=30: 1744 -> 3045
-    trials/s, err 6.2e-7) and 1.45x (superlet T=1000, 75 order-scale
-    pairs: 570 -> 826, err 6.0e-6) over the platform-FFT path; GEMM
-    precision "high" measured no faster than "highest" (the default).
-    The GEMM work grows ~T^2 per trial while the FFT path grows
-    ~L log L, so long trials stay on the FFT path; the bank-byte cap
-    keeps the constant (and its one-time upload) bounded.
-    SPY_TPU_WAVELET_GEMM=1/0 forces either path."""
+#: longest trial the CWT sends to the GEMM bank on the GPU (see below)
+_GEMM_MAX_SAMPLES = 1024
+
+
+def _prefer_conv_gemm(nSamples, n_rows, superlet=False):
+    """Dense GEMM convolution instead of the padded-FFT bank? Measured on
+    an NVIDIA H100 (700 W) at 250 trials x 64 ch, 24 frequencies, in
+    alternating pairs in one process (benchmarks/branch_ab.py
+    --wavelet-ab; median [min-max] of 30 warm calls each): the Morlet CWT
+    at T = 500 takes 0.028 [0.025-0.035] s on the GEMM bank vs 0.057
+    [0.049-0.063] s on the FFT bank, at T = 1000 0.087 [0.080-0.119] vs
+    0.094 [0.076-0.142] s, at T = 2000 0.233 [0.221-0.286] vs 0.164
+    [0.150-0.212] s. The GEMM work grows ~T^2 per trial, the FFT's
+    ~L log L, and both linearly in the number of scales, so the crossover
+    is a trial length: the GEMM bank takes trials up to 1024 samples. The
+    superlet (120 order-scale pairs at T = 1000) runs 0.229 s on the GEMM
+    bank vs 0.165 s on the FFT bank and always takes the FFT bank; so does
+    the CPU. The bank-byte cap keeps the constant (and its one-time
+    upload) bounded. SPY_TPU_WAVELET_GEMM=1/0 forces either path."""
     mode = os.environ.get("SPY_TPU_WAVELET_GEMM", "auto")
     if mode == "0":
         return False
     if mode == "1":
         return True
-    if jax.default_backend() == "cpu":
+    if superlet or jax.default_backend() != "gpu":
         return False
     bank_bytes = 8.0 * n_rows * float(nSamples) ** 2
-    return nSamples <= 2048 and bank_bytes <= _GEMM_BANK_CAP_BYTES
+    return nSamples <= _GEMM_MAX_SAMPLES and bank_bytes <= _GEMM_BANK_CAP_BYTES
 
 
 @functools.lru_cache(maxsize=8)
@@ -404,7 +411,7 @@ def _conv_gemm_bank(wavelet_key, scales_key, dt, nSamples, cycles_key=None):
 
 
 def _apply_conv_gemm(data, Gr, Gi, n_rows, nSamples, epilogue="complex"):
-    """Two real MXU GEMMs -> (n_rows, nSamples, nChannels).
+    """Two real GEMMs -> (n_rows, nSamples, nChannels).
 
     `epilogue` fuses the consumer into the GEMM output and skips the
     complex64 materialization (measured 3045 -> ~4050 trials/s on the
@@ -429,7 +436,7 @@ def cwt_gemm_consts(wavelet, scales, dt, nSamples):
     """Engine device-constant hook for the CWT: ``(Gr, Gi)`` when the
     direct-GEMM path will run at this trial shape, else ``()`` — the bank
     then crosses as a runtime argument (one upload) instead of a literal
-    inside every remote compile payload."""
+    baked into every executable."""
     scales_t = tuple(np.asarray(scales).tolist())
     if not _prefer_conv_gemm(int(nSamples), len(scales_t)):
         return ()
@@ -444,7 +451,7 @@ def superlet_gemm_consts(scales, order_max, order_min, c_1, adaptive, dt, nSampl
     Pair order matches the trace-time ``np.nonzero(w > 0)`` walk."""
     w, cycle_orders = superlet_weights(scales, order_max, order_min, adaptive)
     o_ids, s_ids = np.nonzero(w > 0)
-    if not _prefer_conv_gemm(int(nSamples), len(s_ids)):
+    if not _prefer_conv_gemm(int(nSamples), len(s_ids), superlet=True):
         return ()
     scales_t = tuple(np.asarray(scales).tolist())
     cycles_t = tuple(float(c_1) * int(o) for o in cycle_orders)
@@ -509,13 +516,13 @@ def cwt(data, wavelet, scales, dt, bank=None, power_only=False):
 
 
 def _apply_bank(data, kernel_fft_np, L, nSamples):
-    from .fft import tpu_ifft_crop
+    from .fft import ifft_crop_auto
 
     X = jnp.fft.fft(data.astype(jnp.float32), n=L, axis=0)  # (L, C)
     Y = jnp.asarray(kernel_fft_np)[:, :, None] * X[None, :, :]  # (S, L, C)
-    # inverse transform on the MXU where available; only the first
+    # inverse transform (matmul DFT where selected); only the first
     # nSamples of the L-point circular convolution are ever consumed
-    y = tpu_ifft_crop(Y, axis=1, n_out=nSamples)
+    y = ifft_crop_auto(Y, axis=1, n_out=nSamples)
     return y.astype(jnp.complex64)
 
 
@@ -528,7 +535,7 @@ def cwt_time_sharded(data, wavelet, scales, dt, mesh, axis_name="trial"):
     wavelet.py:15-49 computes on one host).
 
     Each shard exchanges a wavelet-support halo with its ring neighbors
-    over ICI (`lax.ppermute`), runs the FFT bank on its extended local
+    (`lax.ppermute`), runs the FFT bank on its extended local
     block, and crops — equal to :func:`cwt` on the full signal wherever
     the halo covers the kernel support (interior everywhere; edges use the
     same zero extension). The result stays sharded along the time axis.
@@ -809,8 +816,8 @@ def superlet(data, scales, order_max, order_min=1, c_1=3, adaptive=False,
 
     The magnitude path is the production TFR fast path: for
     ``output='pow'/'abs'`` only ``|gmean|`` survives, and
-    ``|prod_o spec_o^w| = exp(sum_o w log|spec_o|)`` — real log/exp on the
-    VPU instead of complex log (log + atan2) and complex exp (exp +
+    ``|prod_o spec_o^w| = exp(sum_o w log|spec_o|)`` — real log/exp
+    instead of complex log (log + atan2) and complex exp (exp +
     sin/cos), and float32 accumulation instead of complex64. Identical
     magnitudes up to float rounding (tested).
     """
@@ -821,12 +828,12 @@ def superlet(data, scales, order_max, order_min=1, c_1=3, adaptive=False,
     # bandwidths (the frontend coerces to int, the ops API need not)
     cycles_t = tuple(float(c_1) * int(o) for o in cycle_orders)
 
-    # MXU path: only the (order, scale) pairs with nonzero geometric-mean
+    # GEMM path: only the (order, scale) pairs with nonzero geometric-mean
     # weight are materialized as convolution rows (the adaptive SLT zeroes
     # roughly half the order x scale grid); the weighted log accumulation
     # across orders becomes a segment_sum over the pair -> scale map.
     o_ids, s_ids = np.nonzero(w > 0)
-    if bank is not None or _prefer_conv_gemm(nSamples, len(s_ids)):
+    if bank is not None or _prefer_conv_gemm(nSamples, len(s_ids), superlet=True):
         if bank is None:
             bank = _conv_gemm_bank(
                 None, tuple(scales_t[j] for j in s_ids), float(dt),
@@ -835,7 +842,7 @@ def superlet(data, scales, order_max, order_min=1, c_1=3, adaptive=False,
         P, S = len(s_ids), len(scales_t)
         # weighted pair -> scale accumulation as ONE small GEMM: a
         # scatter-style segment_sum here measured ~2x slower end to end
-        # (the (S, P) contraction rides the MXU, the scatter does not)
+        # (the (S, P) contraction is a GEMM, the scatter is not)
         W2 = np.zeros((S, P), dtype=np.float32)
         W2[s_ids, np.arange(P)] = w[o_ids, s_ids]
         w2 = jnp.asarray(W2)
@@ -845,22 +852,23 @@ def superlet(data, scales, order_max, order_min=1, c_1=3, adaptive=False,
             # (no complex materialization, no sqrt — 0.5 log|.|^2)
             logm = _apply_conv_gemm(data, bank[0], bank[1], P,
                                     int(nSamples), epilogue="logmag")
-            acc = (w2 @ logm.reshape(P, -1)).reshape((S, nSamples) + C_shape)
+            acc = jnp.matmul(w2, logm.reshape(P, -1), precision=jax.lax.Precision.HIGHEST)
+            acc = acc.reshape((S, nSamples) + C_shape)
             return jnp.exp(acc).astype(jnp.float32)
         spec = _apply_conv_gemm(data, bank[0], bank[1], P, int(nSamples))
         logs = jnp.log(spec).reshape(P, -1)
-        acc_re = w2 @ logs.real
-        acc_im = w2 @ logs.imag
+        acc_re = jnp.matmul(w2, logs.real, precision=jax.lax.Precision.HIGHEST)
+        acc_im = jnp.matmul(w2, logs.imag, precision=jax.lax.Precision.HIGHEST)
         acc = jax.lax.complex(acc_re, acc_im).reshape((S, nSamples) + C_shape)
         return jnp.exp(acc).astype(jnp.complex64)
 
     W = jnp.asarray(w.T, dtype=jnp.float32)  # (S, O)
 
     def scale_block(X, args):
-        from .fft import tpu_ifft_crop
+        from .fft import ifft_crop_auto
 
         k_s, w_s = args  # (O, L), (O,)
-        spec = tpu_ifft_crop(k_s[:, :, None] * X[None, :, :], axis=1,
+        spec = ifft_crop_auto(k_s[:, :, None] * X[None, :, :], axis=1,
                              n_out=nSamples)  # (O, T, C)
         wl = w_s[:, None, None]
         if magnitude_only:

@@ -7,7 +7,7 @@
 # mtmfft.py:132-148 (`_get_dpss_pars`).
 #
 # Windows are built with numpy/scipy on the host at trace/setup time and
-# enter the jitted TPU kernels as constants (XLA constant-folds them); the
+# enter the jitted device kernels as constants (XLA constant-folds them); the
 # spectral normalization scalar is folded into the taper itself so the
 # device kernel is a pure multiply + rfft.
 

@@ -1,17 +1,15 @@
 # -*- coding: utf-8 -*-
 #
-# Host<->device data movement that tolerates backends with broken complex
-# support at program boundaries (e.g. TPU runtimes where transferring
-# complex64 arrays — and sometimes compiling programs with complex
-# inputs/outputs — raises UNIMPLEMENTED, while complex math *inside* a
-# compiled program works fine).
+# Host<->device data movement with complex arrays encoded as real pairs at
+# program boundaries (runtimes exist where transferring complex64 arrays
+# raises UNIMPLEMENTED while complex math *inside* a compiled program works
+# fine; whether the GPU still needs the encoding is not yet measured).
 #
 # Convention: complex arrays cross every jit/transfer boundary encoded as
 # real arrays with an extra length-2 axis ([real, imag]). The pair axis is
 # placed at the FRONT (axis 0, or axis 1 for leading-batch arrays) — never
-# last: TPU tiled layouts make device->host readback of arrays with tiny
-# trailing dimensions orders of magnitude slower (measured ~80 KB/s for a
-# trailing dim of 2 vs ~30 MB/s with the same data shaped (..., 128)).
+# last: a trailing dimension of 2 makes device->host readback of tiled
+# layouts slow.
 
 import numpy as np
 

@@ -1,6 +1,6 @@
 # -*- coding: utf-8 -*-
 #
-# Device-mesh management: the TPU-native replacement for the reference's Dask
+# Device-mesh management: the device-native replacement for the reference's Dask
 # client detection/spawning (reference syncopy/shared/kwarg_decorators.py:415-584
 # and shared/dask_helpers.py).
 #
@@ -119,7 +119,7 @@ def cluster_cleanup(client=None):
 def esi_cluster_setup(n_workers=None, **kwargs):
     """
     API-familiar stand-in for the reference's ACME SLURM helper
-    (reference __init__.py:72-79): on TPU there is no external scheduler —
+    (reference __init__.py:72-79): on accelerators there is no external scheduler —
     "starting a cluster" means installing a device mesh. Builds a
     ``("trial", "channel")`` mesh over `n_workers` devices (all devices if
     None), installs it as the active mesh for subsequent frontend calls,

@@ -4,7 +4,7 @@
 #
 # Parity target: reference SURVEY.md §5 "tracing/profiling" — the reference
 # offers tqdm progress + `parallel_debug` single-threaded scheduling + an
-# ASV suite; the TPU-native equivalents are the JAX profiler (XLA traces
+# ASV suite; the device-native equivalents are the JAX profiler (XLA traces
 # viewable in TensorBoard/Perfetto) plus the engine's per-phase timing
 # (SPY_TPU_PROFILE=1, engine/routine.py).
 

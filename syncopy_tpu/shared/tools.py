@@ -7,6 +7,7 @@
 
 import inspect
 import json
+import sys
 
 import numpy as np
 
@@ -19,6 +20,14 @@ __all__ = [
     "get_frontend_cfg",
     "best_match",
 ]
+
+
+def is_h5_dataset(obj):
+    """Whether `obj` is an ``h5py.Dataset``, without importing h5py: the
+    package runs on machines without it, and no object can be a dataset
+    before h5py has been imported by whoever made it."""
+    h5py = sys.modules.get("h5py")
+    return h5py is not None and isinstance(obj, h5py.Dataset)
 
 
 class StructDict(dict):

@@ -51,7 +51,7 @@ class MultiTaperFFT(ComputationalRoutine):
                  polyremoval=0, freq_idx=None, ft_compat=False, exact_fft=False):
         # exact_fft: compensated double-f32 DFT — entry-proportional
         # spectral rounding so downstream trial-averaged CSDs stay
-        # Wilson-factorizable on TPU (ops/spectral.mtmfft_exact)
+        # Wilson-factorizable (ops/spectral.mtmfft_exact)
         super().__init__(
             samplerate=samplerate, nfft=nfft, taper=taper, taper_opt=taper_opt,
             demean_taper=demean_taper, output=output, keeptapers=keeptapers,
@@ -74,7 +74,7 @@ class MultiTaperFFT(ComputationalRoutine):
         else:
             # parity-sensitive complex outputs keep the platform FFT
             # (~2.4e-7 vs the matmul DFT's ~1e-6); magnitude outputs take
-            # the MXU transform where it wins (ops/fft.py::_prefer_matmul)
+            # the matmul DFT where selected (ops/fft.py::_prefer_matmul)
             ftr = mtmfft(
                 x, tapers, nfft, demean_taper=cfg["demean_taper"],
                 platform_fft=cfg["output"] in ("fourier", "complex"),
@@ -417,7 +417,7 @@ class SuperletTransform(_TimeFreqRoutine):
             self.cfg["adaptive"],
         )
         n_pairs = int(np.count_nonzero(w > 0))
-        if _prefer_conv_gemm(T, n_pairs):
+        if _prefer_conv_gemm(T, n_pairs, superlet=True):
             return n_pairs * T * C * 16
         dt = 1.0 / self.cfg["samplerate"]
         max_cycles = self.cfg["c_1"] * self.cfg["order_max"]

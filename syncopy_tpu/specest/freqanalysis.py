@@ -136,13 +136,13 @@ def freqanalysis(
     ft_compat : bool
         Mirror FieldTrip's spectral normalization conventions exactly.
     exact_fft : bool
-        Compensated double-f32 DFT for CSD-grade accuracy on TPU
+        Compensated double-f32 DFT for CSD-grade accuracy
         (used by the Granger pipeline).
     parallel : bool or None
         Shard trials over the active :func:`~syncopy_tpu.use_mesh` device
         mesh (None = auto-detect).
     chan_per_worker : int or None
-        Accepted for reference compatibility but ADVISORY ONLY in the TPU
+        Accepted for reference compatibility but ADVISORY ONLY in this
         engine: channel-block splitting is replaced by the mesh "channel"
         axis (results are invariant; a log note records the request).
         See `doc/engine.md`.

@@ -6,6 +6,7 @@
 
 import numpy as np
 
+import jax
 import jax.numpy as jnp
 
 from ..engine.routine import ComputationalRoutine
@@ -193,7 +194,8 @@ class Covariance(ComputationalRoutine):
         if cfg["demean"]:
             x = x - jnp.mean(x, axis=0, keepdims=True)
         n = x.shape[0] - cfg["ddof"]
-        cov = jnp.matmul(x.T, x, preferred_element_type=jnp.float32) / n
+        cov = jnp.matmul(x.T, x, preferred_element_type=jnp.float32,
+                         precision=jax.lax.Precision.HIGHEST) / n
         return cov[None]
 
     def process_metadata(self, data, out):

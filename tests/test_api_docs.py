@@ -3,8 +3,8 @@
 # API documentation coverage: every public `spy.*` symbol must carry a
 # docstring, the analysis frontends must document their parameters, and
 # the generated per-function reference (doc/api/, scripts/gen_api_docs.py)
-# must exist and cover the public namespace (VERDICT r4 action #7;
-# reference ships Sphinx autodoc under doc/source/).
+# must exist and cover the public namespace (the reference ships Sphinx
+# autodoc under doc/source/).
 
 import inspect
 import os
@@ -45,7 +45,7 @@ def test_frontend_documents_parameters(name):
 
 def test_chan_per_worker_delta_documented():
     # the advisory-semantics delta vs the reference must be stated where
-    # users read it (VERDICT r4 action #7)
+    # users read it
     for name in ("freqanalysis", "connectivityanalysis"):
         doc = inspect.getdoc(getattr(spy, name)) or ""
         assert "chan_per_worker" in doc and "ADVISORY" in doc, name

@@ -107,7 +107,7 @@ class TestWilsonFloat32Refined:
     """The float32 device Wilson path (compensated-residual Newton
     refinement, ops/connectivity.py::_wilson_refine) must converge to the
     reference rtol and match the float64 factorization to ~1e-6 on the
-    final Granger output — this is the production TPU path (no float64)."""
+    final Granger output — this is the production device path (float32)."""
 
     def _avg_csd(self, nChannels=8, nTrials=60, nSamples=400, seed=13):
         import jax.numpy as jnp
@@ -505,7 +505,7 @@ class TestPSDRepair:
     """Floating-point trial accumulation can leave the CSD slightly
     indefinite (tiny negative eigenvalues); an indefinite matrix has no
     Wilson factorization, so regularize_csd must repair it (measured floor
-    ~3e-5 at 1000 trials on the TPU MXU's sequential f32 accumulation)."""
+    ~3e-5 at 1000 trials of sequential f32 accumulation)."""
 
     def _psd_csd(self, N=8, seed=0):
         """Smooth, factorizable CSD: hann-tapered spectra of AR(2) noise
@@ -564,9 +564,8 @@ class TestPSDRepair:
 
 class TestFastRegExtents:
     """Wide-channel regularization runs WITHOUT an eigendecomposition
-    (``csd_lam_extents``: Cholesky bisection of both spectral extremes —
-    the batched TPU eigvalsh is 73 % of the whole Granger factorization
-    wall at 128 ch, granger_stage_profile.py round 5). The fast path must
+    (``csd_lam_extents``: Cholesky bisection of both spectral extremes,
+    cheaper than a batched eigvalsh at wide channel counts). The fast path must
     reproduce the eigvalsh path's regularization selection exactly."""
 
     def _wishart(self, F, N, K, seed=0, indefinite_bins=()):
@@ -882,7 +881,7 @@ class TestGrangerFromSpectra:
 
 
 class TestGrangerRankGate:
-    """Pre-flight rank gate (VERDICT r4 action #2): nTrials*nTapers <
+    """Pre-flight rank gate: nTrials*nTapers <
     nChannels means the averaged CSD is singular by construction — the
     frontend must route straight to the host-f64 path WITHOUT attempting
     the doomed device factorization (which burns ~26 s at 256 ch)."""
@@ -1153,262 +1152,298 @@ class TestPlusOperatorOnesided:
         assert rel < 1e-4
 
 
-class TestPallasCSDKernel:
-    """Interpret-mode parity for the pallas MXU CSD kernel — the CPU suite
-    cannot run the compiled TPU kernel, but `interpret=True` executes the
-    same pallas program semantics (ops/pallas_kernels.py)."""
-
-    def test_matches_einsum_oracle(self):
-        import jax.numpy as jnp
-
-        from syncopy_tpu.ops.pallas_kernels import csd_accumulate
-
-        rng = np.random.default_rng(7)
-        F, N, C = 5, 12, 8
-        spec = (rng.normal(size=(F, N, C)) + 1j * rng.normal(size=(F, N, C))).astype(
-            np.complex64
-        )
-        cs_re, cs_im = csd_accumulate(
-            jnp.asarray(spec.real), jnp.asarray(spec.imag), interpret=True
-        )
-        got = np.asarray(cs_re) + 1j * np.asarray(cs_im)
-        want = np.einsum("fni,fnj->fij", spec, np.conj(spec))
-        assert np.allclose(got, want, atol=1e-4)
-        # Hermitian by construction
-        assert np.allclose(got, np.conj(np.swapaxes(got, 1, 2)), atol=1e-5)
-
-    def test_zero_and_single_row(self):
-        import jax.numpy as jnp
-
-        from syncopy_tpu.ops.pallas_kernels import csd_accumulate
-
-        one = np.zeros((2, 1, 4), dtype=np.float32)
-        one[0, 0, 1] = 2.0
-        cs_re, cs_im = csd_accumulate(jnp.asarray(one), jnp.asarray(np.zeros_like(one)),
-                                      interpret=True)
-        want = np.einsum("fni,fnj->fij", one, one)
-        assert np.allclose(np.asarray(cs_re), want)
-        assert np.allclose(np.asarray(cs_im), 0.0)
+def _csd_oracle(spec, n_valid):
+    """float64 trial+taper CSD sum of the first `n_valid` trials."""
+    spec = spec[:n_valid].astype(np.complex128)
+    return np.einsum("bkfi,bkfj->fij", spec, np.conj(spec))
 
 
-class TestPallasPPCKernel:
-    """Interpret-mode parity for the fused PPC resultant kernel: per-trial
-    taper-averaged CSDs collapse to unit phasors and sum entirely in VMEM
-    (ops/pallas_kernels.py::ppc_accumulate_tiled)."""
+def _cross_spectra_cr(T=250, fs=1000.0):
+    from syncopy_tpu.connectivity.ST_compRoutines import CrossSpectra
+    from syncopy_tpu.shared.input_processors import process_taper
 
-    def _oracle(self, spec, nv):
-        spec = spec.astype(np.complex128)
-        csd = np.einsum("nkfi,nkfj->nfij", spec, np.conj(spec)) / spec.shape[1]
-        mag = np.abs(csd)
-        unit = np.where(mag > 0, csd / np.where(mag > 0, mag, 1.0), 0.0)
-        return unit[:nv].sum(axis=0)
+    taper, taper_opt = process_taper(
+        "hann", None, 4, None, keeptapers=False, foimax=fs / 2,
+        samplerate=fs, nSamples=T, output="pow",
+    )
+    return CrossSpectra(samplerate=fs, nSamples=T, taper=taper, taper_opt=taper_opt)
+
+
+class TestCSDBatchSum:
+    """The fused trial-summed CSD (CrossSpectra.process_batch_sum, the
+    coherence/CSD Gram): masking, padding garbage, counts, and equality
+    with the per-trial path."""
+
+    def _spectra64(self, cr, x):
+        from syncopy_tpu.ops.windows import make_tapers
+
+        cfg = cr.cfg
+        taps = make_tapers(cfg["taper"], cfg["taper_opt"], x.shape[1], x.shape[1],
+                           cfg["samplerate"]).astype(np.float64)
+        xd = x.astype(np.float64) - x.astype(np.float64).mean(axis=1, keepdims=True)
+        return np.fft.rfft(taps[None, :, :, None] * xd[:, None], axis=2), taps.shape[0]
 
     def test_matches_f64_oracle_with_masking(self):
         import jax.numpy as jnp
 
-        from syncopy_tpu.ops.pallas_kernels import ppc_accumulate_tiled
+        cr = _cross_spectra_cr()
+        rng = np.random.default_rng(3)
+        x = rng.normal(size=(11, 250, 6)).astype(np.float32)
+        nv = 7
+        got = np.asarray(cr.process_batch_sum(jnp.asarray(x), nv, **cr.cfg))[0]
+        spec, K = self._spectra64(cr, x)
+        want = _csd_oracle(spec, nv) / K
+        assert np.abs(got - want).max() / np.abs(want).max() < 1e-5
+        assert np.allclose(got, np.conj(np.swapaxes(got, 1, 2)),
+                           atol=1e-5 * np.abs(want).max())
 
-        rng = np.random.default_rng(5)
-        N, K, F, C = 21, 3, 11, 8  # nothing divisible by the blocks
-        spec = (rng.normal(size=(N, K, F, C))
-                + 1j * rng.normal(size=(N, K, F, C))).astype(np.complex64)
-        nv = 17
-        got = np.asarray(ppc_accumulate_tiled(
-            jnp.asarray(spec.real), jnp.asarray(spec.imag), nv, interpret=True
-        ))
-        want = self._oracle(spec, nv)
-        assert got.shape == want.shape
-        assert np.abs(got - want).max() < 1e-4
-        # resultant terms are unit phasors: diagonal equals exactly nv
-        assert np.allclose(got[:, np.arange(C), np.arange(C)].real, nv,
-                           atol=1e-3)
-
-    def test_full_count_and_ppc_value(self):
+    def test_nan_padding_rows_masked(self):
+        """Rows at/past n_valid may be garbage (resident padding is
+        kernel(0) output incl. NaN): they must be where-masked out."""
         import jax.numpy as jnp
 
-        from syncopy_tpu.ops.pallas_kernels import ppc_accumulate_tiled
+        cr = _cross_spectra_cr()
+        rng = np.random.default_rng(4)
+        x = rng.normal(size=(9, 250, 4)).astype(np.float32)
+        poisoned = x.copy()
+        poisoned[6:] = np.nan
+        got = np.asarray(cr.process_batch_sum(jnp.asarray(poisoned), 6, **cr.cfg))[0]
+        spec, K = self._spectra64(cr, x)
+        want = _csd_oracle(spec, 6) / K
+        assert np.isfinite(got).all()
+        assert np.abs(got - want).max() / np.abs(want).max() < 1e-5
 
+    def test_zero_valid_rows_gives_zero(self):
+        import jax.numpy as jnp
+
+        cr = _cross_spectra_cr()
+        x = np.random.default_rng(5).normal(size=(3, 250, 4)).astype(np.float32)
+        got = np.asarray(cr.process_batch_sum(jnp.asarray(x), 0, **cr.cfg))
+        assert np.all(got == 0)
+
+    def test_full_count(self):
+        import jax.numpy as jnp
+
+        cr = _cross_spectra_cr()
+        x = np.random.default_rng(6).normal(size=(5, 250, 3)).astype(np.float32)
+        got = np.asarray(cr.process_batch_sum(jnp.asarray(x), 5, **cr.cfg))[0]
+        spec, K = self._spectra64(cr, x)
+        want = _csd_oracle(spec, 5) / K
+        assert np.abs(got - want).max() / np.abs(want).max() < 1e-5
+
+    def test_production_coherence_equivalence(self):
+        """Fused trial-sum coherence equals the per-trial path's coherence
+        below 1e-5 on the production shapes."""
+        import jax.numpy as jnp
+
+        from syncopy_tpu.ops.connectivity import cross_spectra_trial, normalize_csd
+
+        fs, T, C, B = 1000.0, 250, 16, 40
+        cr = _cross_spectra_cr(T, fs)
+        x = np.random.default_rng(6).normal(size=(B, T, C)).astype(np.float32)
+        cs_sum = np.asarray(cr.process_batch_sum(jnp.asarray(x), B, **cr.cfg))[0]
+        coh_fused = np.asarray(normalize_csd(jnp.asarray(cs_sum / B), "abs"))
+        per = sum(np.asarray(cross_spectra_trial(
+            jnp.asarray(x[b]), fs, T, taper=cr.cfg["taper"],
+            taper_opt=cr.cfg["taper_opt"]))[0] for b in range(B))
+        coh_trial = np.asarray(normalize_csd(jnp.asarray(per / B), "abs"))
+        assert np.abs(coh_fused - coh_trial).max() < 1e-5
+
+
+def _ppc_oracle(spec, nv):
+    spec = spec.astype(np.complex128)
+    csd = np.einsum("nkfi,nkfj->nfij", spec, np.conj(spec)) / spec.shape[1]
+    mag = np.abs(csd)
+    unit = np.where(mag > 0, csd / np.where(mag > 0, mag, 1.0), 0.0)
+    return unit[:nv].sum(axis=0)
+
+
+def _ppc_impl(name):
+    """The two PPC resultant implementations, on complex (N, K, F, C)
+    input: the Triton kernel run by the Pallas interpreter, and XLA."""
+    import jax.numpy as jnp
+
+    from syncopy_tpu.ops.pallas_kernels import ppc_resultant_triton, ppc_resultant_xla
+
+    if name == "triton":
+        return lambda spec, nv: np.asarray(ppc_resultant_triton(
+            jnp.asarray(spec.real), jnp.asarray(spec.imag), nv, interpret=True))
+    return lambda spec, nv: np.asarray(ppc_resultant_xla(jnp.asarray(spec), nv))
+
+
+@pytest.mark.parametrize("impl", ["triton", "xla"])
+class TestPPCResultant:
+    """PPC resultant of per-trial unit cross-spectra (ops/pallas_kernels.py)
+    against a float64 oracle, for the GPU kernel (interpret mode) and the
+    plain XLA form."""
+
+    def test_matches_f64_oracle_with_masking(self, impl):
+        rng = np.random.default_rng(5)
+        N, K, F, C = 21, 3, 11, 19  # channels not a multiple of the tile
+        spec = (rng.normal(size=(N, K, F, C))
+                + 1j * rng.normal(size=(N, K, F, C))).astype(np.complex64)
+        got = _ppc_impl(impl)(spec, 17)
+        want = _ppc_oracle(spec, 17)
+        assert got.shape == want.shape
+        assert np.abs(got - want).max() < 1e-4
+        # resultant terms are unit phasors: the diagonal is exactly nv
+        assert np.allclose(got[:, np.arange(C), np.arange(C)].real, 17, atol=1e-3)
+
+    def test_full_count_and_ppc_value(self, impl):
         rng = np.random.default_rng(8)
         N, K, F, C = 16, 2, 8, 4
         spec = (rng.normal(size=(N, K, F, C))
                 + 1j * rng.normal(size=(N, K, F, C))).astype(np.complex64)
-        U = np.asarray(ppc_accumulate_tiled(
-            jnp.asarray(spec.real), jnp.asarray(spec.imag), N, interpret=True
-        ))
-        want = self._oracle(spec, N)
+        U = _ppc_impl(impl)(spec, N)
+        want = _ppc_oracle(spec, N)
         ppc_got = ((U * np.conj(U)).real - N) / (N * (N - 1))
         ppc_want = ((want * np.conj(want)).real - N) / (N * (N - 1))
         assert np.abs(ppc_got - ppc_want).max() < 1e-4
-        # PPC of i==i is exactly 1
-        assert np.allclose(ppc_got[:, np.arange(C), np.arange(C)], 1.0,
-                           atol=1e-4)
+        assert np.allclose(ppc_got[:, np.arange(C), np.arange(C)], 1.0, atol=1e-4)
 
-    def test_zero_trial_guard(self):
-        import jax.numpy as jnp
+    def test_zero_trial_guard(self, impl):
+        spec = np.zeros((4, 1, 3, 4), dtype=np.complex64)
+        assert np.allclose(_ppc_impl(impl)(spec, 0), 0.0)
 
-        from syncopy_tpu.ops.pallas_kernels import ppc_accumulate_tiled
-
-        spec = np.zeros((4, 1, 3, 4), dtype=np.float32)
-        U = np.asarray(ppc_accumulate_tiled(
-            jnp.asarray(spec), jnp.asarray(spec), 0, interpret=True))
-        assert np.allclose(U, 0.0)
-
-    def test_nan_padding_trials_masked(self):
-        """Trials at/past n_valid may be arbitrary garbage (resident
-        padding is kernel(0) output incl. NaN) — the inputs must be
-        where-masked BEFORE the Gram, or NaN*0 poisons the resultant."""
-        import jax.numpy as jnp
-
-        from syncopy_tpu.ops.pallas_kernels import ppc_accumulate_tiled
-
+    def test_nan_padding_trials_masked(self, impl):
+        """Trials at/past n_valid may be NaN garbage (resident padding):
+        they must never reach the resultant."""
         rng = np.random.default_rng(11)
-        N, K, F, C = 13, 2, 9, 6  # non-divisible by trial/freq blocks
+        N, K, F, C = 13, 2, 9, 6
         spec = (rng.normal(size=(N, K, F, C))
                 + 1j * rng.normal(size=(N, K, F, C))).astype(np.complex64)
-        nv = 9
         poisoned = spec.copy()
-        poisoned[nv:] = np.nan
-        got = np.asarray(ppc_accumulate_tiled(
-            jnp.asarray(poisoned.real), jnp.asarray(poisoned.imag), nv,
-            interpret=True))
-        want = self._oracle(spec, nv)
+        poisoned[9:] = np.nan
+        got = _ppc_impl(impl)(poisoned, 9)
         assert np.isfinite(got).all()
-        assert np.abs(got - want).max() < 1e-4
+        assert np.abs(got - _ppc_oracle(spec, 9)).max() < 1e-4
 
 
-class TestPallasTiledCSDKernel:
-    """Interpret-mode parity for the TILED pallas CSD kernel — the
-    production MXU path for many-row trial sums (in-kernel masking,
-    cross-row-group TwoSum accumulation)."""
+class TestPPCResultantSharded:
+    """The Triton resultant split over a trial-sharded mesh (one kernel per
+    device, partial sums psum-ed), run by the Pallas interpreter on four
+    CPU devices against the float64 oracle."""
 
-    def _oracle(self, spec, n_valid_rows):
-        spec = spec.astype(np.complex128)
-        spec = np.where(
-            (np.arange(spec.shape[0]) < n_valid_rows)[:, None, None], spec, 0
-        )
-        return np.einsum("nfi,nfj->fij", spec, np.conj(spec))
-
-    def test_matches_f64_oracle_with_masking(self):
-        import jax.numpy as jnp
-
-        from syncopy_tpu.ops.pallas_kernels import csd_accumulate_tiled
-
-        rng = np.random.default_rng(3)
-        N, F, C = 111, 101, 24  # none divisible by the block sizes
-        spec = (rng.normal(size=(N, F, C)) + 1j * rng.normal(size=(N, F, C))).astype(
-            np.complex64
-        )
-        nv = 87
-        got = np.asarray(csd_accumulate_tiled(
-            jnp.asarray(spec.real), jnp.asarray(spec.imag), nv, interpret=True
-        ))
-        want = self._oracle(spec, nv)
-        scale = np.abs(want).max()
-        assert np.abs(got - want).max() / scale < 1e-5
-        assert np.allclose(got, np.conj(np.swapaxes(got, 1, 2)), atol=1e-4 * scale)
-
-    def test_nan_padding_rows_masked(self):
-        """Rows at/past n_valid_rows may be arbitrary garbage (resident
-        padding is kernel(0) output incl. NaN) — the in-kernel where-mask
-        must keep them out of the sum."""
-        import jax.numpy as jnp
-
-        from syncopy_tpu.ops.pallas_kernels import csd_accumulate_tiled
-
-        rng = np.random.default_rng(4)
-        N, F, C = 40, 17, 8
-        spec = (rng.normal(size=(N, F, C)) + 1j * rng.normal(size=(N, F, C))).astype(
-            np.complex64
-        )
-        nv = 25
-        poisoned = spec.copy()
-        poisoned[nv:] = np.nan
-        got = np.asarray(csd_accumulate_tiled(
-            jnp.asarray(poisoned.real), jnp.asarray(poisoned.imag), nv,
-            interpret=True,
-        ))
-        want = self._oracle(spec, nv)
-        assert np.isfinite(got).all()
-        assert np.abs(got - want).max() / np.abs(want).max() < 1e-5
-
-    def test_small_slab_and_full_mask(self):
-        import jax.numpy as jnp
-
-        from syncopy_tpu.ops.pallas_kernels import csd_accumulate_tiled
-
-        rng = np.random.default_rng(5)
-        spec = (rng.normal(size=(3, 2, 4)) + 1j * rng.normal(size=(3, 2, 4))).astype(
-            np.complex64
-        )
-        got = np.asarray(csd_accumulate_tiled(
-            jnp.asarray(spec.real), jnp.asarray(spec.imag), 3, interpret=True
-        ))
-        want = self._oracle(spec, 3)
-        assert np.abs(got - want).max() / max(np.abs(want).max(), 1e-9) < 1e-5
-        # zero valid rows -> exact zero
-        got0 = np.asarray(csd_accumulate_tiled(
-            jnp.asarray(spec.real), jnp.asarray(spec.imag), 0, interpret=True
-        ))
-        assert np.all(got0 == 0)
-
-    def test_block_gating(self):
-        from syncopy_tpu.ops.pallas_kernels import tiled_blocks_for
-
-        assert tiled_blocks_for(64) == (256, 8)
-        assert tiled_blocks_for(256) == (64, 8)
-        assert tiled_blocks_for(512) is None
-        assert tiled_blocks_for(1024) is None
-        # Mosaic tiling rule: the operand block's second-to-last dim (the
-        # freq tile) must stay divisible by 8
-        for c in (16, 64, 128, 256):
-            assert tiled_blocks_for(c)[1] % 8 == 0
-
-    def test_production_coherence_equivalence(self):
-        """The tiled path and the compensated-einsum path must agree at
-        coherence level below 1e-5 (the VERDICT acceptance bar) on the
-        production fused trial-sum shapes."""
+    @pytest.mark.parametrize("nv", [24, 17, 5, 0])
+    def test_matches_f64_oracle(self, nv):
+        """n_valid spanning all shards, ending mid-shard, leaving whole
+        shards empty, and zero; trials past n_valid are NaN garbage."""
         import jax
         import jax.numpy as jnp
 
-        from syncopy_tpu.connectivity.ST_compRoutines import CrossSpectra
-        from syncopy_tpu.ops.connectivity import normalize_csd
-        from syncopy_tpu.ops.pallas_kernels import csd_accumulate_tiled
-        from syncopy_tpu.shared.input_processors import process_taper
+        from syncopy_tpu.ops.pallas_kernels import ppc_resultant_sharded
+        from syncopy_tpu.parallel.mesh import make_mesh
 
-        fs, T, C, B = 1000.0, 250, 16, 40
-        taper, taper_opt = process_taper(
-            "hann", None, 4, None, keeptapers=False, foimax=fs / 2,
-            samplerate=fs, nSamples=T, output="pow",
-        )
-        cr = CrossSpectra(samplerate=fs, nSamples=T, taper=taper,
-                          taper_opt=taper_opt)
-        rng = np.random.default_rng(6)
-        x = rng.normal(size=(B, T, C)).astype(np.float32)
-        nv = jnp.asarray(B, jnp.int32)
-        # compensated production path (pallas unsupported on CPU)
-        cs_comp = np.asarray(cr.process_batch_sum(jnp.asarray(x), nv, **cr.cfg))[0]
-        coh_comp = np.asarray(normalize_csd(jnp.asarray(cs_comp / B), "abs"))
-        # the full production pallas leg: matmul-DFT spectrum + tiled Gram
-        from syncopy_tpu.ops.fft import rfft_via_matmul
-        from syncopy_tpu.ops.spectral import detrend
-        from syncopy_tpu.ops.windows import make_tapers
+        rng = np.random.default_rng(nv)
+        N, K, F, C = 24, 2, 5, 7
+        spec = (rng.normal(size=(N, K, F, C))
+                + 1j * rng.normal(size=(N, K, F, C))).astype(np.complex64)
+        poisoned = spec.copy()
+        poisoned[nv:] = np.nan
+        mesh = make_mesh(devices=jax.devices()[:4])
+        got = np.asarray(jax.jit(
+            lambda s, n: ppc_resultant_sharded(s, n, mesh, interpret=True)
+        )(jnp.asarray(poisoned), nv))
+        assert got.shape == (F, C, C)
+        assert np.isfinite(got).all()
+        assert np.abs(got - _ppc_oracle(spec, nv)).max() < 1e-4
 
-        taps = jnp.asarray(make_tapers(taper, taper_opt, T, T, fs))
-        K = taps.shape[0]
-        xd = detrend(jnp.asarray(x), 0, axis=1)
-        tapered = taps[None, :, :, None] * xd[:, None, :, :]
-        spec = rfft_via_matmul(tapered, T, axis=2)  # (B, K, F, C)
-        slab = spec.reshape(B * K, spec.shape[2], C)
-        cs_tiled = np.asarray(csd_accumulate_tiled(
-            jnp.real(slab), jnp.imag(slab), B * K, interpret=True
-        )) / K
-        coh_tiled = np.asarray(normalize_csd(jnp.asarray(cs_tiled / B), "abs"))
-        assert np.abs(coh_tiled - coh_comp).max() < 1e-5
+    def test_frontend_passes_engine_mesh(self, monkeypatch):
+        """PPCSpectra hands the engine's mesh to the resultant, and the
+        mesh result equals the single-device one."""
+        from jax.sharding import Mesh
+
+        import syncopy_tpu as spy
+        from syncopy_tpu.engine import routine as _routine
+        from syncopy_tpu.ops import pallas_kernels as pk
+
+        seen = []
+        real = pk.ppc_resultant
+
+        def recording(spec, n_valid, mesh=None):
+            seen.append(mesh)
+            return real(spec, n_valid, mesh=mesh)
+
+        monkeypatch.setattr(pk, "ppc_resultant", recording)
+        _routine._GLOBAL_JIT_CACHE.clear()
+        d = spy.synthdata.white_noise(nTrials=10, nSamples=200, nChannels=3, seed=4)
+        solo = np.asarray(spy.connectivityanalysis(
+            d, method="ppc", tapsmofrq=5, parallel=False).data)
+        meshed = np.asarray(spy.connectivityanalysis(
+            d, method="ppc", tapsmofrq=5, parallel=True).data)
+        _routine._GLOBAL_JIT_CACHE.clear()
+        assert seen[0] is None
+        assert isinstance(seen[-1], Mesh) and seen[-1].size > 1
+        assert np.abs(meshed - solo).max() < 1e-5
+
+
+class TestPPCKernelChoice:
+    """Which PPC resultant runs where, and what the GPU route compiles to."""
+
+    def test_choice_by_platform(self, monkeypatch):
+        import jax
+
+        from syncopy_tpu.ops import pallas_kernels as pk
+
+        from syncopy_tpu.parallel.mesh import make_mesh
+
+        monkeypatch.setattr(pk, "ppc_resultant_triton", lambda re, im, nv: "triton")
+        monkeypatch.setattr(pk, "ppc_resultant_sharded", lambda spec, nv, mesh: "sharded")
+        monkeypatch.setattr(pk, "ppc_resultant_xla", lambda spec, nv: "xla")
+        spec = np.zeros((2, 1, 3, 4), dtype=np.complex64)
+        mesh4 = make_mesh(devices=jax.devices()[:4])
+        mesh1 = make_mesh(devices=jax.devices()[:1])
+        monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+        assert pk.ppc_resultant(spec, 2) == "triton"
+        assert pk.ppc_resultant(spec, 2, mesh=mesh1) == "triton"
+        assert pk.ppc_resultant(spec, 2, mesh=mesh4) == "sharded"
+        monkeypatch.setattr(jax, "default_backend", lambda: "cpu")
+        assert pk.ppc_resultant(spec, 2) == "xla"
+        assert pk.ppc_resultant(spec, 2, mesh=mesh4) == "xla"
+        monkeypatch.setattr(jax, "default_backend", lambda: "rocm")
+        with pytest.raises(NotImplementedError):
+            pk.ppc_resultant(spec, 2)
+
+    def test_block_sizes(self):
+        from syncopy_tpu.ops.pallas_kernels import ppc_block_for
+
+        assert ppc_block_for(3) == 16
+        assert ppc_block_for(19) == 32
+        assert ppc_block_for(64) == 32
+        assert ppc_block_for(1024) == 32
+
+    def test_lowers_to_triton_for_cuda(self):
+        """The kernel lowers for the CUDA platform through Triton (the
+        GPU compiler itself runs only on the card)."""
+        import jax
+        import jax.numpy as jnp
+
+        from syncopy_tpu.ops.pallas_kernels import ppc_resultant_triton
+
+        re = jnp.zeros((5, 3, 7, 64), jnp.float32)
+        lowered = jax.jit(lambda a, b: ppc_resultant_triton(a, b, 4)).trace(
+            re, re).lower(lowering_platforms=("cuda",))
+        text = lowered.as_text()
+        assert "triton" in text.lower()
+        assert "ppc_resultant" in text
+
+    def test_device_bytes_follow_path(self, monkeypatch):
+        import jax
+
+        from syncopy_tpu.connectivity.ST_compRoutines import PPCSpectra
+
+        cr = PPCSpectra(samplerate=1000.0, nSamples=1000, taper="hann")
+        monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+        gpu = cr.device_bytes_per_trial((1000, 64), None, None)
+        monkeypatch.setattr(jax, "default_backend", lambda: "cpu")
+        cpu = cr.device_bytes_per_trial((1000, 64), None, None)
+        # only the XLA path keeps the (F, C, C) per-trial stack
+        assert cpu - gpu > 501 * 64 * 64 * 8 * 0.9
 
 
 class TestMatmulFFT:
-    """MXU-resident two-stage Cooley-Tukey rfft (ops/fft.py) — the
-    spectral stage of the production coherence path on TPU."""
+    """Two-stage Cooley-Tukey matmul rfft (ops/fft.py), selected by
+    SPY_TPU_MATMUL_FFT=1."""
 
     def test_matches_numpy_rfft(self):
         import jax.numpy as jnp
@@ -1443,9 +1478,10 @@ class TestMatmulFFT:
 
 
 class TestCcovLagGemm:
-    """The accelerator cross-covariance path (lag-batched MXU Grams) must
-    match the FFT correlation to float32 rounding, even/odd lengths,
-    including the block-tail clamp region (ops/connectivity.py)."""
+    """The lag-batched Gram cross-covariance (``_ccov_lags_gemm``, called
+    directly; no production path takes it) must match the FFT correlation
+    to float32 rounding, even/odd lengths, including the block-tail clamp
+    region (ops/connectivity.py)."""
 
     @pytest.mark.parametrize("T", [1000, 999, 100, 101, 64, 65])
     def test_gemm_matches_fft(self, T):
@@ -1463,29 +1499,31 @@ class TestCcovLagGemm:
         assert np.abs(a - b).max() / np.abs(a).max() < 2e-6
 
     def test_trial_path_uses_gemm_on_accelerator(self, monkeypatch):
-        """cross_covariance_trial must route through the GEMM lags off-CPU
-        and produce identical results either way."""
-        import jax
+        """cross_covariance_trial takes the FFT correlation on every
+        backend (the lag Grams lose on the GPU) and agrees with the lag
+        Grams assembled the same way."""
         import jax.numpy as jnp
 
         from syncopy_tpu.ops import connectivity as oc
 
         rng = np.random.default_rng(3)
         x = jnp.asarray(rng.normal(size=(200, 4)).astype(np.float32))
-        want = np.asarray(oc.cross_covariance_trial(x, polyremoval=0))
+        xd = oc.detrend(x, 0, axis=0)
+        n_lags, delta = oc._ccov_lag_geometry(200)
+        want = np.asarray(oc._ccov_assemble(oc._ccov_lags_gemm(xd, n_lags, delta), 200))
         called = {}
-
         real_gemm = oc._ccov_lags_gemm
 
         def spy_gemm(*a, **k):
             called["yes"] = True
             return real_gemm(*a, **k)
 
-        monkeypatch.setattr(oc.jax, "default_backend", lambda: "tpu")
         monkeypatch.setattr(oc, "_ccov_lags_gemm", spy_gemm)
-        got = np.asarray(oc.cross_covariance_trial(x, polyremoval=0))
-        assert called.get("yes")
-        assert np.abs(got - want).max() / np.abs(want).max() < 2e-6
+        for backend in ("cpu", "gpu"):
+            monkeypatch.setattr(oc.jax, "default_backend", lambda b=backend: b)
+            got = np.asarray(oc.cross_covariance_trial(x, polyremoval=0))[:, 0]
+            assert not called, f"{backend}: the lag Grams are off every path"
+            assert np.abs(got - want).max() / np.abs(want).max() < 2e-6
 
 
 class TestCcovBatchSum:
@@ -1552,8 +1590,8 @@ class TestPreferredFFTLen:
 
 
 class TestMatmulIFFT:
-    """Cropped inverse matmul DFT (ops/fft.py) — the wavelet-bank inverse
-    transform stage on TPU."""
+    """Cropped inverse matmul DFT (ops/fft.py), the wavelet-bank inverse
+    transform where SPY_TPU_MATMUL_FFT=1 selects it."""
 
     def test_matches_numpy_ifft(self):
         import jax.numpy as jnp

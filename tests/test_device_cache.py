@@ -65,7 +65,7 @@ class TestDeviceCache:
             self, adata_equal, monkeypatch, caplog):
         # a selector whose indexer repr fails disables the trial store for
         # the run (correctness-safe) — but the bypass must be LOGGED, not
-        # silent (VERDICT r3 weak #5)
+        # silent
         import logging
 
         from syncopy_tpu.datatype.selector import Selector

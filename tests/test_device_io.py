@@ -1,6 +1,6 @@
 # -*- coding: utf-8 -*-
 # Complex-pair boundary encoding tests (parallel/device_io.py): the
-# load-bearing machinery for TPU runtimes without complex transfer support.
+# load-bearing machinery for runtimes without complex transfer support.
 
 import numpy as np
 import pytest

@@ -2,7 +2,7 @@
 #
 # Mesh invariance matrix: every analysis frontend must produce the same
 # numbers on an 8-device (trial x channel) mesh as on a single device —
-# the TPU analog of the reference's dask sequential-vs-parallel equality
+# the device analog of the reference's dask sequential-vs-parallel equality
 # sweeps (tests/test_specest.py parallel blocks, test_connectivity.py
 # `test_parallel`, test_resampledata.py `test_*_parallel`).
 

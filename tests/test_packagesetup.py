@@ -131,3 +131,63 @@ class TestReferenceApiParity:
     def test_get_dir_size_invalid_unit(self, tmp_path):
         with pytest.raises(spy.SPYValueError, match="unit"):
             spy.get_dir_size(str(tmp_path), unit="MiB")
+
+
+def _run_python(code, env_extra=None, cwd=None):
+    """Run `code` in a fresh interpreter with the repo on the path."""
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    env.pop("JAX_COMPILATION_CACHE_DIR", None)
+    env.update(env_extra or {})
+    return subprocess.run([sys.executable, "-c", code], env=env, cwd=cwd or repo,
+                          capture_output=True, text=True, timeout=300)
+
+
+class TestStartup:
+    def test_compile_cache_honours_env(self, tmp_path):
+        """With JAX_COMPILATION_CACHE_DIR set, the package sets no cache
+        directory of its own: JAX reads the variable itself."""
+        cache = str(tmp_path / "jaxcache")
+        proc = _run_python(
+            "import jax, syncopy_tpu; print(jax.config.jax_compilation_cache_dir)",
+            {"JAX_COMPILATION_CACHE_DIR": cache})
+        assert proc.returncode == 0, proc.stderr
+        assert proc.stdout.strip().splitlines()[-1] == cache
+
+    def test_default_compile_cache_is_fixed_in_checkout(self):
+        repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        code = "import jax, syncopy_tpu; print(jax.config.jax_compilation_cache_dir)"
+        first = _run_python(code)
+        second = _run_python(code)
+        assert first.returncode == 0, first.stderr
+        path = first.stdout.strip().splitlines()[-1]
+        assert path == os.path.join(repo, ".jax_cache")
+        assert second.stdout.strip().splitlines()[-1] == path
+
+    def test_import_without_h5py(self):
+        """`import syncopy_tpu` and an in-memory analysis need no h5py."""
+        code = (
+            "import sys\n"
+            "class Block:\n"
+            "    def find_spec(self, name, path=None, target=None):\n"
+            "        if name == 'h5py' or name.startswith('h5py.'):\n"
+            "            raise ImportError('h5py blocked')\n"
+            "sys.meta_path.insert(0, Block())\n"
+            "import syncopy_tpu as spy\n"
+            "d = spy.synthdata.white_noise(nTrials=3, nSamples=100, nChannels=2, seed=1)\n"
+            "s = spy.freqanalysis(d, method='mtmfft', taper='hann')\n"
+            "assert 'h5py' not in sys.modules\n"
+            "print('ok', s.data.shape)\n")
+        proc = _run_python(code)
+        assert proc.returncode == 0, proc.stderr
+        assert proc.stdout.strip().splitlines()[-1].startswith("ok")
+
+    def test_is_h5_dataset_without_h5py_import(self):
+        from syncopy_tpu.shared.tools import is_h5_dataset
+
+        assert not is_h5_dataset(np.zeros(3))
+        assert not is_h5_dataset(None)

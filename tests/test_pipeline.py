@@ -48,7 +48,7 @@ class TestFullPipeline:
 
 class TestConfig5DeviceProgram:
     """The streamed at-spec config-#5 benchmark program (scaled down):
-    correctness properties the big TPU run relies on."""
+    correctness properties the full-size run on the card relies on."""
 
     def test_smoke_and_determinism(self):
         from benchmarks.config5_device import run_config5_device

@@ -327,7 +327,7 @@ class TestResidentSubChunking:
                     reason="device residency disabled")
 class TestPlotResolutionView:
     """fetch_trial_view: plot-resolution readback of one resident trial,
-    decimated + magnitude-reduced on device (VERDICT r2 #9)."""
+    decimated + magnitude-reduced on device."""
 
     def _tfr(self, output="pow"):
         d = spy.synthdata.harmonic(freq=40, samplerate=500, nTrials=3,

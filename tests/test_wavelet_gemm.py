@@ -166,3 +166,32 @@ class TestEngineDeviceConstants:
                                output="pow", keeptrials=False)
         assert np.allclose(np.asarray(new.data), np.asarray(ref.data),
                            rtol=1e-4, atol=1e-7 * float(np.max(np.asarray(ref.data))))
+
+
+class TestBankChoice:
+    """Which convolution bank the library picks with no knob set: the GEMM
+    bank for the CWT of trials up to 1024 samples on a GPU, the FFT bank
+    for longer trials, for superlets, and on the CPU."""
+
+    @pytest.mark.parametrize("backend,T,superlet,want", [
+        ("gpu", 500, False, True),
+        ("gpu", 1000, False, True),
+        ("gpu", 1024, False, True),
+        ("gpu", 2000, False, False),
+        ("gpu", 500, True, False),
+        ("cpu", 500, False, False),
+    ])
+    def test_auto_choice(self, monkeypatch, backend, T, superlet, want):
+        from syncopy_tpu.ops import wavelet as wv
+
+        monkeypatch.delenv("SPY_TPU_WAVELET_GEMM", raising=False)
+        monkeypatch.setattr(wv.jax, "default_backend", lambda: backend)
+        assert wv._prefer_conv_gemm(T, 24, superlet=superlet) is want
+
+    def test_bank_cap(self, monkeypatch):
+        from syncopy_tpu.ops import wavelet as wv
+
+        monkeypatch.delenv("SPY_TPU_WAVELET_GEMM", raising=False)
+        monkeypatch.setattr(wv.jax, "default_backend", lambda: "gpu")
+        monkeypatch.setattr(wv, "_GEMM_BANK_CAP_BYTES", 8.0 * 24 * 1000.0 ** 2 - 1)
+        assert not wv._prefer_conv_gemm(1000, 24)
